@@ -1,0 +1,64 @@
+"""Wrapper of the hand-written CUDA decode-attention kernel
+(``csrc/decode_attention.cu``), the port of the Pallas TPU kernel
+``repro/kernels/decode_attention.py::decode_attention``.
+
+CUDA tensors only: the kernel launches on the current stream, without a
+synchronisation, into an output allocated here.  Its plain version is
+``ref.decode_attention_naive`` (``ops`` sends CPU tensors to ``ref``).
+``launches`` counts the kernel launches of this process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from ._wrap import (DTYPES, check_bthd, check_common, check_lengths,
+                    raise_on_error)
+
+launches = 0
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {"decode_attention_fwd": [
+    _I, _I, _P, _P, _P, _P, _P,            # dtype, D, q, k, v, o, lengths
+    _I, _I, _I, _I,                        # B, S, Hq, Hkv
+    _LL, _LL, _LL, _LL, _LL,               # q batch; k, v (b, s) strides
+    _I, ctypes.c_float, _P]}               # window, scale, stream
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int | None = None) -> torch.Tensor:
+    """q: (B, 1, Hq, D); caches: (B, S, Hkv, D); lengths: (B,) valid cache
+    entries.  Returns (B, 1, Hq, D) in q's dtype.  Semantics of
+    ``repro.kernels.ref.decode_attention_naive``."""
+    global launches
+    w = check_common(q, window)
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        check_bthd(name, x, q.dtype, q.device)
+    b, one, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    if one != 1:
+        raise ValueError(f"q must hold one token, got {tuple(q.shape)}")
+    if (k_cache.shape[0] != b or k_cache.shape[3] != d
+            or v_cache.shape != k_cache.shape):
+        raise ValueError(f"cache shapes {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    lens = check_lengths(lengths, b, q.device)
+    lib = _build.load("decode_attention", _SIGNATURES)
+    out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.decode_attention_fwd(
+        DTYPES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), out.data_ptr(), lens.data_ptr(), b, s, hq, hkv,
+        q.stride(0), k_cache.stride(0), k_cache.stride(1),
+        v_cache.stride(0), v_cache.stride(1), w, 1.0 / math.sqrt(d), stream)
+    launches += 1
+    raise_on_error(err, "decode_attention")
+    return out

@@ -1,0 +1,140 @@
+"""Building blocks of the dense decoder, ported from ``repro.models.layers``.
+
+Parameters are plain dicts of tensors with the JAX package's names and
+layouts.  Compute runs in bf16 with fp32 norm, rope angles and softmax, as in
+the JAX package.  Attention dispatches through ``repro_torch.kernels.ops``:
+the CUDA kernels on the card, the plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from .config import ArchConfig
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + w)).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
+def apply_norm(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
+    return rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embedding
+# --------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (B, T, H, D) with D even; positions: (B, T) absolute indices.
+    Split-half rotation with the angles in fp32."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    ang = positions[..., None].float() * freqs                # (B,T,D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention block (self-attention with optional KV cache)
+# --------------------------------------------------------------------------
+
+def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+              positions: torch.Tensor, mode: str, causal: bool = True,
+              window: int | None = None, cache: dict | None = None,
+              lengths: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, dict]:
+    """Self-attention.
+
+    mode: "full"   — train/prefill over the whole sequence; returns the
+                     (k, v) computed here as the new cache entry.
+          "decode" — T == 1; writes the new token's k/v into ``cache``
+                     {"k","v"} of shape (B,S,Hkv,hd) at ``lengths-1`` and
+                     attends over it.
+    """
+    b, t, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xc = x.to(COMPUTE_DTYPE)
+    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, t, hq, hd)
+    k = (xc @ p["wk"].to(COMPUTE_DTYPE)).reshape(b, t, hkv, hd)
+    v = (xc @ p["wv"].to(COMPUTE_DTYPE)).reshape(b, t, hkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "decode":
+        if cache is None or lengths is None:
+            raise ValueError("decode mode needs cache and lengths")
+        slot = lengths.long() - 1                             # (B,)
+        bidx = torch.arange(b, device=x.device)
+        # Written in place: the engine owns the cache, where the JAX engine
+        # donates it and rebuilds it functionally with .at[].set — in place
+        # saves a copy of the whole (B,S,Hkv,hd) cache per layer and step.
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        out = ops.decode_attention(q, cache["k"], cache["v"], lengths,
+                                   window=window)
+        new_cache = cache
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  lengths=lengths)
+        new_cache = {"k": k, "v": v}
+    out = out.reshape(b, t, hq * hd)
+    return (out @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype), new_cache
+
+
+# --------------------------------------------------------------------------
+# MLP (gated / plain)
+# --------------------------------------------------------------------------
+
+def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")              # geglu / gelu
+
+
+def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    xc = x.to(COMPUTE_DTYPE)
+    if "w_gate" in p:
+        h = _act(cfg, xc @ p["w_gate"].to(COMPUTE_DTYPE)) * (
+            xc @ p["w_up"].to(COMPUTE_DTYPE))
+    else:
+        h = _act(cfg, xc @ p["w_up"].to(COMPUTE_DTYPE))
+    return (h @ p["w_down"].to(COMPUTE_DTYPE)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Embedding / head
+# --------------------------------------------------------------------------
+
+def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embedding"][tokens]
+
+
+def unembed(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    w = p["embedding"].T if cfg.tie_embeddings else p["head"]
+    return (x.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)).float()

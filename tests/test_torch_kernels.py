@@ -1,0 +1,180 @@
+"""The port's attention plain versions and ops dispatch against the JAX
+package's oracles, on the CPU, over the shape lists of test_kernels.py.
+
+Inputs are drawn with numpy and handed to both packages; bf16 inputs are
+rounded from the same fp32 values on both sides, so they hold the same bits.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import decode_attention as jda  # noqa: E402
+from repro.kernels import flash_attention as jfa  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from test_kernels import DECODE_SHAPES, SHAPES  # noqa: E402
+
+# the tolerances of tests/test_kernels.py::TOL
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a torch tensor and a jax array."""
+    tdt, jdt, _ = DTYPES[dtype]
+    a = rng.standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).to(tdt), jnp.asarray(a).astype(jdt)
+
+
+def _qkv(seed, b, tq, tk, hq, hkv, d, dtype):
+    rng = np.random.default_rng(seed)
+    return [_pair(rng, s, dtype)
+            for s in ((b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d))]
+
+
+def _close(got, want, dtype):
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _flash_case(shape, dtype, seed=0):
+    b, tq, tk, hq, hkv, d, win, caus, bq, bk = shape
+    (tq_, jq), (tk_, jk), (tv_, jv) = _qkv(seed, b, tq, tk, hq, hkv, d,
+                                           dtype)
+    lens = np.asarray([tk] + [max(tk * 2 // 3, 1)] * (b - 1), np.int32)
+    kw = dict(causal=caus, window=win, q_offset=tk - tq)
+    want = jref.attention_naive(jq, jk, jv, lengths=jnp.asarray(lens), **kw)
+    return (tq_, tk_, tv_), torch.from_numpy(lens), kw, want, (jq, jk, jv)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_naive_matches_jax(shape, dtype):
+    (q, k, v), lens, kw, want, _ = _flash_case(shape, dtype)
+    _close(ref.attention_naive(q, k, v, lengths=lens, **kw), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_blocked_matches_jax(shape, dtype):
+    (q, k, v), lens, kw, want, _ = _flash_case(shape, dtype)
+    bq, bk = shape[-2:]
+    got = ref.attention_blocked(q, k, v, lengths=lens, block_q=bq,
+                                block_k=bk, **kw)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("backend", ["blocked", "naive"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ops_flash_attention_cpu_matches_jax(shape, dtype, backend):
+    (q, k, v), lens, kw, want, _ = _flash_case(shape, dtype)
+    before = fa.launches
+    ops.set_backend(backend)
+    try:
+        got = ops.flash_attention(q, k, v, lengths=lens, **kw)
+    finally:
+        ops.set_backend("blocked")
+    _close(got, want, dtype)
+    assert fa.launches == before == 0          # CPU tensors never launch
+
+
+def _decode_case(shape, dtype, seed=1):
+    b, s, hq, hkv, d, win, bk = shape
+    rng = np.random.default_rng(seed)
+    (q, jq), (kc, jkc), (vc, jvc) = [
+        _pair(rng, sh, dtype)
+        for sh in ((b, 1, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+    lens = np.asarray([s] + [max(s // 3, 1)] * (b - 1), np.int32)
+    want = jref.decode_attention_naive(jq, jkc, jvc, jnp.asarray(lens),
+                                       window=win)
+    return (q, kc, vc), torch.from_numpy(lens), win, want, (jq, jkc, jvc)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_attention_naive_matches_jax(shape, dtype):
+    (q, kc, vc), lens, win, want, _ = _decode_case(shape, dtype)
+    _close(ref.decode_attention_naive(q, kc, vc, lens, window=win), want,
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_ops_decode_attention_cpu_matches_jax(shape, dtype):
+    (q, kc, vc), lens, win, want, _ = _decode_case(shape, dtype)
+    got = ops.decode_attention(q, kc, vc, lens, window=win)
+    _close(got, want, dtype)
+    assert da.launches == 0                    # CPU tensors never launch
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_matches_pallas_interpret(dtype):
+    """The port's ops path against the TPU kernel itself (interpret mode),
+    on the windowed ragged GQA shape."""
+    shape = SHAPES[2]
+    (q, k, v), lens, kw, _, (jq, jk, jv) = _flash_case(shape, dtype)
+    bq, bk = shape[-2:]
+    want = jfa.flash_attention(jq, jk, jv, lengths=jnp.asarray(lens.numpy()),
+                               block_q=bq, block_k=bk, interpret=True, **kw)
+    _close(ops.flash_attention(q, k, v, lengths=lens, **kw), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_attention_matches_pallas_interpret(dtype):
+    shape = DECODE_SHAPES[3]
+    (q, kc, vc), lens, win, _, (jq, jkc, jvc) = _decode_case(shape, dtype)
+    want = jda.decode_attention(jq, jkc, jvc, jnp.asarray(lens.numpy()),
+                                window=win, block_k=shape[-1],
+                                interpret=True)
+    _close(ops.decode_attention(q, kc, vc, lens, window=win), want, dtype)
+
+
+def test_fully_masked_rows_are_zero_not_nan():
+    """Rows with no valid key (q past lengths under a window, empty slots)
+    give 0 in every plain version, as in the reference."""
+    q = torch.randn(2, 8, 4, 16)
+    k = torch.randn(2, 8, 2, 16)
+    lens = torch.tensor([8, 0])
+    for fn in (ref.attention_naive, ref.attention_blocked):
+        out = fn(q, k, k, lengths=lens, window=2)
+        assert torch.isfinite(out).all()
+        assert (out[1] == 0).all()
+    dec = ref.decode_attention_naive(q[:, :1], k, k, lens)
+    assert torch.isfinite(dec).all() and (dec[1] == 0).all()
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    """A wrapper launches its kernel or raises; it never runs the plain
+    version, and its checks fire before any build; no backend value
+    routes around the kernels."""
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da.decode_attention(q[:, :1], q, q, torch.tensor([4]))
+    with pytest.raises(ValueError, match="backend"):
+        ops.set_backend("cuda")
+    assert fa.launches == 0 and da.launches == 0
+
+
+def test_chip_smoke_checks_the_reference_shape_lists():
+    """chip_smoke.py holds the kernels to the same shape lists as the JAX
+    package's kernel tests (it cannot import them: they import jax)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.SHAPES == SHAPES
+    assert chip_smoke.DECODE_SHAPES == DECODE_SHAPES
