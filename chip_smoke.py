@@ -7,19 +7,28 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit.  Imports nothing of jax and nothing of the JAX package.  Phases,
 each of which exits non-zero when it fails:
 
-1. the card (``nvidia-smi`` name and power limit); the kernels are built from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
+1. the card (``nvidia-smi`` name and power limit); the three kernels are
+   built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
+   parallel);
 2. each CUDA kernel against its plain PyTorch version on the card: the shape
-   lists of ``tests/test_kernels.py`` in fp32 and bf16 at its ``TOL``, then
-   the main path's gemma-2b shapes (head_dim 256, MQA, ragged, windowed);
-3. the main path at full width: gemma-2b, all 18 layers, seeded random bf16
-   weights, a ``ServingEngine(max_batch=4, max_len=1024)`` answering 8
-   requests, with both kernels' launch counters read around the run; then
-   prefill-then-decode logits against the full forward;
-4. a profiler window over full decode steps (device-busy share), then
-   times at the main path's shapes: kernel, plain version, one PyTorch
-   library call (``scaled_dot_product_attention``, a yardstick the port never
-   calls) and the card's bound; engine tokens/s, prefill and decode-step ms.
+   lists of ``tests/test_kernels.py`` (attention in fp32 and bf16 at its
+   ``TOL``, the SSD pass and the whole scan at its atol 1e-4), then the
+   serving paths' shapes (gemma-2b attention: head_dim 256, MQA, ragged,
+   windowed; mamba2-780m's and hymba-1.5b's SSD at chunk 128 and 39);
+3. three serving paths at full width, each a ``ServingEngine(max_batch=4,
+   max_len=1024)`` on seeded random bf16 weights, every kernel's launch
+   counter set to 0 just before the run and read just after:
+   - gemma-2b, all 18 layers, 8 requests: flash and decode attention, then
+     prefill-then-decode logits against the full forward and a profiler
+     window over decode steps (device-busy share);
+   - mamba2-780m, all 48 layers, 8 requests: the SSD kernel and no
+     attention kernel, then prefill-then-decode against the full forward
+     and a profiler window;
+   - hymba-1.5b, all 32 layers, 4 requests: all three kernels;
+4. times at the serving shapes: kernel, plain version, one PyTorch library
+   call where one computes the same function (``scaled_dot_product_attention``
+   for attention, a yardstick the port never calls; none for the SSD pass)
+   and the card's bound; engine tokens/s, prefill and decode-step ms.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -41,7 +50,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, ref, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -65,7 +74,10 @@ DECODE_SHAPES = [
     (1, 64, 8, 1, 128, None, 64),
     (4, 256, 12, 3, 64, 100, 128),
 ]
+SSD_SHAPES = [(1, 64, 4, 8, 16, 16), (2, 48, 2, 16, 8, 8),
+              (1, 33, 3, 8, 4, 16), (2, 128, 8, 16, 32, 32)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_ATOL = 1e-4
 
 # gemma-2b attention: 8 query heads over one kv head, head_dim 256
 HQ, HKV, HD = 8, 1, 256
@@ -78,9 +90,20 @@ PREFILL = [(1, 512, None), (1, 128, None), (4, 512, None), (2, 1024, 512)]
 # 32 new ones) and is recorded in the kernels line.
 DECODE_LENS = [([544, 400, 256, 96], None), ([1024, 700, 33, 1], None),
                ([1024, 517, 2, 0], 512)]
+# the SSD pass at the serving widths, (b, t, nh, hd, n, chunk): a 512-token
+# prompt (four chunks of 128, the first entry is recorded in the kernels
+# line) and a 39-token one (one short chunk), for mamba2-780m (48 heads,
+# d_state 128) and hymba-1.5b (50 heads, d_state 16)
+SSD_PREFILL = [(1, 512, 48, 64, 128, 128), (1, 39, 48, 64, 128, 128),
+               (1, 512, 50, 64, 16, 128), (1, 39, 50, 64, 16, 128)]
 MAX_BATCH, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 1024, 8, 32
-# published dense peaks of one H100 SXM (NVIDIA data sheet)
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+HYBRID_REQUESTS = 4
+# published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 tensor
+# cores, fp32 outside the tensor cores, memory
+PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# each kernel's wrapper module, whose ``launches`` counts its launches
+COUNTERS = {"flash_attention": fa, "decode_attention": da,
+            "ssd_intra_chunk": ssd_scan}
 
 
 def log(msg: str) -> None:
@@ -98,10 +121,12 @@ def _randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _check(name, got, want, tol) -> float:
+def _check(name, got, want, tol, rtol=None) -> float:
+    """|got - want| <= tol + rtol * |want| element-wise (rtol defaults to
+    tol), and got finite; returns the largest |got - want|."""
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    bound = tol + tol * want.float().abs()
+    bound = tol + (tol if rtol is None else rtol) * want.float().abs()
     if not bool(torch.isfinite(got.float()).all()) or bool((err > bound).any()):
         raise AssertionError(f"{name}: max |err| {err.max().item():.3e} over "
                              f"tolerance {tol}")
@@ -126,6 +151,40 @@ def decode_case(b, s, hq, hkv, d, dtype, lens, seed):
     return (q, kc, vc), torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 
+def ssd_case(b, t, nh, hd, n, seed):
+    """(x, dt, A, B, C, D) drawn like tests/test_kernels.py::_mk_ssd."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (rn(b, t, nh, hd) * 0.5,
+            torch.nn.functional.softplus(rn(b, t, nh)) * 0.1,
+            -torch.exp(rn(nh)), rn(b, t, n) * 0.3, rn(b, t, n) * 0.3,
+            torch.full((nh,), 0.1, device="cuda"))
+
+
+def check_ssd(shape, seed) -> float:
+    """The SSD kernel against its plain version, and the whole scan around
+    it against ``ref.ssd_chunked`` with and without an incoming state, at
+    atol 1e-4; returns the kernel's largest error."""
+    b, t, nh, hd, n, chunk = shape
+    x, dt, A, B, C, D = ssd_case(b, t, nh, hd, n, seed)
+    ops_ = ssd_scan.chunk_operands(x, dt, A, B, C, chunk)
+    got = ssd_scan.ssd_intra_chunk(*ops_, nh=nh, hd=hd)
+    want = ref.ssd_intra_chunk(*ops_, nh=nh, hd=hd)
+    err = max(_check(f"ssd_intra_chunk {shape} {part}", g, w, SSD_ATOL, 0.0)
+              for part, g, w in zip(("y_diag", "states"), got, want))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    h0 = torch.randn((b, nh, hd, n), generator=gen, device="cuda") * 0.1
+    for h in (None, h0):
+        got = ssd_scan.ssd(x, dt, A, B, C, D, chunk=chunk, h0=h)
+        want = ref.ssd_chunked(x, dt, A, B, C, D, chunk=chunk, h0=h)
+        for part, g, w in zip(("y", "state"), got, want):
+            _check(f"ssd {shape} h0={h is not None} {part}", g, w, SSD_ATOL,
+                   0.0)
+    return err
+
+
 def check_kernels() -> dict:
     """Every kernel against its plain version; returns the largest error at
     the main path's shapes per kernel."""
@@ -147,8 +206,13 @@ def check_kernels() -> dict:
                    ref.decode_attention_naive(*args, lens, window=win),
                    TOL[dtype])
             n += 1
-    log(f"kernels vs plain, reference shape lists: {n} cases within TOL")
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    for i, shape in enumerate(SSD_SHAPES):
+        check_ssd(shape, 600 + i)
+        n += 1
+    log(f"kernels vs plain, reference shape lists: {n} cases within TOL "
+        f"(attention) and atol {SSD_ATOL} (SSD)")
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0,
+             "ssd_intra_chunk": 0.0}
     cases = [(b, t, w, torch.bfloat16) for b, t, w in PREFILL]
     cases.append((1, 128, None, torch.float32))
     for i, (b, t, win, dtype) in enumerate(cases):
@@ -175,6 +239,10 @@ def check_kernels() -> dict:
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"],
                                                 err)
+    for i, shape in enumerate(SSD_PREFILL):
+        err = check_ssd(shape, 700 + i)
+        log(f"  ssd     {shape}: max|err| {err:.3e}")
+        worst["ssd_intra_chunk"] = max(worst["ssd_intra_chunk"], err)
     torch.cuda.synchronize()
     return worst
 
@@ -184,18 +252,20 @@ def drive_main_path(model, params, prompts) -> dict:
     read just after."""
     eng = ServingEngine(model, params, max_batch=MAX_BATCH, max_len=MAX_LEN)
     rids = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
-    fa.launches = da.launches = 0
+    for mod in COUNTERS.values():
+        mod.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.launches,
-                "decode_attention": da.launches}
+    launches = {k: mod.launches for k, mod in COUNTERS.items()}
     return dict(eng=eng, rids=rids, done=done, wall=wall, launches=launches)
 
 
-def check_engine(run, cfg, n: int) -> int:
+def check_engine(run, cfg, n: int, kernels) -> int:
+    """All ``n`` requests answered with MAX_NEW in-vocab tokens each; the
+    kernels named in ``kernels`` launched in the run and no other."""
     done, rids = run["done"], run["rids"]
     if len(done) != n or sorted(done) != sorted(rids):
         raise AssertionError(f"served {len(done)} of {n} requests")
@@ -208,13 +278,20 @@ def check_engine(run, cfg, n: int) -> int:
             raise AssertionError(f"request {rid}: token out of [0, vocab)")
         tokens += len(gen)
     for name, count in run["launches"].items():
-        if count <= 0:
+        if name in kernels and count <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+        if name not in kernels and count != 0:
+            raise AssertionError(f"{name} launched {count} times on a path "
+                                 "that does not run it")
     return tokens
 
 
-def check_prefill_then_decode(model, params, cfg) -> float:
-    """Prefill P tokens, decode one, compare with the full forward at P."""
+def check_prefill_then_decode(model, params, cfg, limit: float) -> float:
+    """Prefill P tokens, decode one, compare with the full forward at P:
+    5e-2 in relative norm, ``limit`` element-wise.  Logs beside it how far
+    the forward over P tokens and over P + 1 tokens part at position P - 1:
+    0 means the prompt's positions are computed exactly alike, and the
+    error is the decode step's own arithmetic."""
     b, s = 2, 256
     p = s - 1
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -223,24 +300,45 @@ def check_prefill_then_decode(model, params, cfg) -> float:
         "tokens": toks[:, :p],
         "lengths": torch.full((b,), p, dtype=torch.int32, device="cuda")})
     cache = model.init_cache(b, s)
-    for k in cache:
-        cache[k][:, :, :p] = pcache[k]
+    for k, v in pcache.items():
+        if k in ("k", "v"):                 # positions: the prompt's prefix
+            cache[k][:, :, :p] = v
+        else:                               # SSM state, conv context: whole
+            cache[k].copy_(v)
     got, _ = model.apply_decode(params, cache, {
         "tokens": toks[:, p:],
         "lengths": torch.full((b,), p + 1, dtype=torch.int32,
                               device="cuda")})
-    want = model.apply_train(params, {"tokens": toks})[:, p]
+    full = model.apply_train(params, {"tokens": toks})
+    want = full[:, p]
+    floor = (model.apply_train(params, {"tokens": toks[:, :p]})[:, p - 1]
+             - full[:, p - 1]).abs().max().item()
     rel = ((got[:, 0] - want).norm() / want.norm()).item()
-    log(f"prefill-then-decode vs full forward: relative error {rel:.3e}")
+    top = (got[:, 0] - want).abs().max().item()
+    log(f"prefill-then-decode vs full forward: relative error {rel:.3e}, "
+        f"largest element {top:.3e}; forward over P vs P + 1 tokens at "
+        f"P - 1: {floor:.3e}")
     if rel > 5e-2:
         raise AssertionError(f"prefill-then-decode: relative error {rel}")
-    # Element-wise, 1e-1 and not the 5e-2 of tests/test_arch_smoke.py (which
-    # the reduced 2-layer configs hold in tests/test_torch_model.py): at full
-    # width cuBLAS picks different GEMM kernels for the 255-row prefill and
-    # the 256-row forward, their bf16 outputs differ by an ulp here and
-    # there, and that compounds over 18 layers (6.4e-2 seen on an H100).
     return _check("prefill-then-decode vs full forward", got[:, 0], want,
-                  1e-1)
+                  limit)
+
+
+# Element-wise limits of the prefill-then-decode check, and why they are not
+# the 5e-2 of tests/test_arch_smoke.py (which the reduced 2-layer configs
+# hold in tests/test_torch_model.py and tests/test_torch_ssm.py).  On an
+# H100 the forward over 255 and over 256 tokens agree exactly at position
+# 254, so the prompt's cache is exact; the error is the decode step's.  Its
+# GEMMs run on B = 2 rows where the full forward's run on 512, cuBLAS runs
+# other kernels for them (skinny ``nvjet_tst_*x8_*`` ones in the decode
+# profile), their bf16 outputs round differently here and there, and that
+# compounds over the layers: 6.25e-2 seen over gemma-2b's 18 layers,
+# 1.31e-1 over mamba2-780m's 48 (relative error 3.35e-2), where the SSD
+# state also enters the decode step from the kernel's chunked sums.
+PTD_LIMIT = {"gemma-2b": 1e-1, "mamba2-780m": 2e-1}
+
+
+OUR_KERNELS = ("flash_kernel", "decode_kernel", "ssd_intra_chunk_kernel")
 
 
 def decode_breakdown(model, params, prompts, steps: int = 8) -> str:
@@ -272,13 +370,13 @@ def decode_breakdown(model, params, prompts, steps: int = 8) -> str:
         return (f"decode step {wall_ms:.3f} ms on the host clock; device "
                 "time not measured (the profiler saw no kernels)")
     device_ms = sum(by_name.values())
-    attn_ms = sum(v for k, v in by_name.items()
-                  if "decode_kernel" in k or "flash_kernel" in k)
+    ours_ms = sum(v for k, v in by_name.items()
+                  if any(o in k for o in OUR_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return (f"decode step {wall_ms:.3f} ms on the host clock, kernels "
             f"{device_ms:.3f} ms on the device (busy {device_ms / wall_ms:.1%}"
-            f", idle {1 - device_ms / wall_ms:.1%}), decode-attention kernel "
-            f"{attn_ms:.3f} ms; top kernels: "
+            f", idle {1 - device_ms / wall_ms:.1%}), {len(by_name)} kernel "
+            f"names, hand-written kernels {ours_ms:.3f} ms; top kernels: "
             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
 
 
@@ -301,8 +399,9 @@ def time_ms(fn, flush: torch.Tensor | None, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS
+           ) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -358,6 +457,64 @@ def time_decode(lens, win, flush) -> dict:
         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
 
 
+def time_ssd(shape) -> dict:
+    """The SSD pass at a serving shape.  Its least work: scores C.B^T once
+    per chunk (2 c^2 n), y_diag over the causal pairs only
+    (2 nh hd c(c+1)/2) and the states (2 nh c n hd), all fp32, so the
+    operations' bound is at the fp32 peak outside the tensor cores; bytes are
+    each fp32 input read once and each output written once."""
+    b, t, nh, hd, n, chunk = shape
+    ops_ = ssd_scan.chunk_operands(*ssd_case(b, t, nh, hd, n, 800)[:5],
+                                   chunk)
+    _, nc, c, _ = ops_[0].shape
+    pairs = c * (c + 1) / 2
+    flops = float(b * nc * (2 * c * c * n + 2 * nh * hd * pairs
+                            + 2 * nh * c * n * hd))
+    out = b * nc * (c * nh * hd + nh * n * hd)
+    nbytes = 4.0 * (sum(o.numel() for o in ops_) + out)
+    bound, by = _bound(flops, nbytes, PEAK_FP32_FLOPS)
+    return dict(
+        ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*ops_, nh=nh, hd=hd),
+                   None),
+        plain_ms=time_ms(lambda: ref.ssd_intra_chunk(*ops_, nh=nh, hd=hd),
+                         None),
+        library_ms=None, bound_ms=bound, bound_by=by, flops=flops,
+        bytes=nbytes)
+
+
+def serve(aid: str, n_requests: int, kernels, smi: str):
+    """Seeded full-width bf16 weights for ``aid``, a warm-up engine run,
+    then the counted run over ``n_requests`` prompts (numpy seed 0, 32..512
+    tokens); returns (cfg, model, params, prompts, run)."""
+    cfg = get_config(aid)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"{aid} full width: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters, init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(32, 513, size=N_REQUESTS)]
+    drive_main_path(model, params, prompts[:2])          # warm-up run
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_main_path(model, params, prompts[:n_requests])
+    tokens = check_engine(run, cfg, n_requests, kernels)
+    eng = run["eng"]
+    log(f"{aid} engine: {n_requests}/{n_requests} requests, prompt lengths "
+        f"{[len(p) for p in prompts[:n_requests]]}, {tokens} tokens in "
+        f"{run['wall']:.3f} s = {tokens / run['wall']:.1f} tok/s; "
+        f"median prefill {1e3 * statistics.median(eng.prefill_seconds):.3f} "
+        f"ms, median decode step "
+        f"{1e3 * statistics.median(eng.decode_seconds):.3f} ms over "
+        f"{len(eng.decode_seconds)} steps; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    log(f"{aid} launches per engine run: {run['launches']}")
+    return cfg, model, params, prompts, run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -388,40 +545,31 @@ def main() -> int:
     # 2. kernels against their plain versions
     worst = check_kernels()
 
-    # 3. the main path at full width
-    cfg = get_config("gemma-2b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        device="cuda", dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
-    log(f"gemma-2b full width: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
-        f"parameters, init {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
-               for n in rng.integers(32, 513, size=N_REQUESTS)]
-    drive_main_path(model, params, prompts[:2])          # warm-up run
-    torch.cuda.reset_peak_memory_stats()
-    run = drive_main_path(model, params, prompts)
-    tokens = check_engine(run, cfg, N_REQUESTS)
-    eng = run["eng"]
-    log(f"engine: {N_REQUESTS}/{N_REQUESTS} requests, prompt lengths "
-        f"{[len(p) for p in prompts]}, {tokens} tokens in "
-        f"{run['wall']:.3f} s = {tokens / run['wall']:.1f} tok/s; "
-        f"median prefill {1e3 * statistics.median(eng.prefill_seconds):.3f} "
-        f"ms, median decode step "
-        f"{1e3 * statistics.median(eng.decode_seconds):.3f} ms over "
-        f"{len(eng.decode_seconds)} steps; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
-    log(f"launches per engine run: {run['launches']}")
-    err = check_prefill_then_decode(model, params, cfg)
+    # 3. the serving paths at full width
+    cfg, model, params, prompts, run = serve(
+        "gemma-2b", N_REQUESTS, ("flash_attention", "decode_attention"), smi)
+    err = check_prefill_then_decode(model, params, cfg, PTD_LIMIT[cfg.name])
     log(f"prefill-then-decode vs full forward (B=2, P=255): max|err| "
-        f"{err:.3e} within 1e-1")
+        f"{err:.3e} within {PTD_LIMIT[cfg.name]}")
     log(f"where the time goes: {decode_breakdown(model, params, prompts)} "
         f"[{smi}]")
-    launches = run["launches"]
-    del params, eng, run
+    launches = dict(run["launches"])
+    del params, model, run
+    torch.cuda.empty_cache()
+
+    cfg, model, params, prompts, run = serve(
+        "mamba2-780m", N_REQUESTS, ("ssd_intra_chunk",), smi)
+    err = check_prefill_then_decode(model, params, cfg, PTD_LIMIT[cfg.name])
+    log(f"mamba2-780m prefill-then-decode vs full forward (B=2, P=255: a "
+        f"full chunk and a padded one): max|err| {err:.3e} within "
+        f"{PTD_LIMIT[cfg.name]}")
+    log(f"mamba2-780m where the time goes: "
+        f"{decode_breakdown(model, params, prompts)} [{smi}]")
+    launches["ssd_intra_chunk"] = run["launches"]["ssd_intra_chunk"]
+    del params, model, run
+    torch.cuda.empty_cache()
+
+    serve("hymba-1.5b", HYBRID_REQUESTS, tuple(COUNTERS), smi)
     torch.cuda.empty_cache()
 
     # 4. times at the main path's shapes
@@ -441,6 +589,14 @@ def main() -> int:
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}) [{smi}]")
         records.setdefault("decode_attention", r)
+    for shape in SSD_PREFILL[::2]:
+        r = time_ssd(shape)
+        log(f"time ssd    {shape}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}: "
+            f"{r['flops'] / 1e9:.3f} GFLOP fp32, {r['bytes'] / 1e6:.2f} MB) "
+            f"[{smi}]")
+        records.setdefault("ssd_intra_chunk", r)
     log(f"kernels: {list(_build.KERNELS)}")
 
     source = {
@@ -448,7 +604,11 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:134"),
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:104")}
+            "src/repro/kernels/decode_attention.py:104"),
+        "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
+                            "src/repro/kernels/ssd_scan.py:69")}
+    # launches: the attention kernels' from the gemma-2b run, the SSD
+    # kernel's from the mamba2-780m run (hymba-1.5b's are logged above)
     kernels = []
     for kname in _build.KERNELS:
         r = records[kname]

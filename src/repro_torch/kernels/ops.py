@@ -1,9 +1,10 @@
-"""Dispatch of the attention entry points, the port's ``repro.kernels.ops``.
+"""Dispatch of the kernel entry points, the port's ``repro.kernels.ops``.
 
 The tensor's device picks the path:
 
   * a CUDA tensor goes through the hand-written CUDA kernel
-    (``flash_attention`` / ``decode_attention``), or the call raises;
+    (``flash_attention`` / ``decode_attention`` / the intra-chunk pass of
+    ``ssd``), or the call raises;
   * a CPU tensor goes through the plain version in ``ref``:
     ``set_backend("blocked")`` (the default, as in the JAX package) or
     ``"naive"`` chooses which.
@@ -18,7 +19,7 @@ from typing import Literal
 
 from . import decode_attention as da
 from . import flash_attention as fa
-from . import ref
+from . import ref, ssd_scan
 
 Backend = Literal["blocked", "naive"]
 _BACKENDS = ("blocked", "naive")
@@ -81,11 +82,18 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window=None):
 # --------------------------------------------------------------------------
 
 def ssd(x, dt, A, B, C, D, *, chunk=128, h0=None):
-    raise NotImplementedError(
-        "the SSD scan is ported with the SSM slice (ssm/hybrid families)")
+    """Chunked SSD scan (prefill/training); the intra-chunk pass of a CUDA
+    tensor runs in the CUDA kernel."""
+    if _on_cuda(x):
+        return ssd_scan.ssd(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    if _BACKEND == "naive":
+        return ref.ssd_naive(x, dt, A, B, C, D, h0=h0)
+    return ref.ssd_chunked(x, dt, A, B, C, D, chunk=chunk, h0=h0)
 
 
 def ssd_decode_step(h, x, dt, A, B, C, D):
-    raise NotImplementedError(
-        "the SSD decode step is ported with the SSM slice (ssm/hybrid "
-        "families)")
+    """One-token SSM update in plain PyTorch on either device.  No TPU
+    kernel computes it: the JAX package runs it outside Pallas too
+    (``repro/kernels/ops.py::ssd_decode_step``), so this mirrors it and is
+    not a fallback."""
+    return ref.ssd_decode_step(h, x, dt, A, B, C, D)

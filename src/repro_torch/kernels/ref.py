@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the attention kernels, ported from
-``repro.kernels.ref``.
+"""Plain PyTorch versions of the kernels, ported from ``repro.kernels.ref``.
 
 Two tiers per op, as in the JAX package:
-  * ``*_naive``   — direct einsum/softmax math; the correctness oracle.
-  * ``*_blocked`` — the flash algorithm as Python loops over blocks with a
-                    running (m, l, acc); numerically equivalent to naive.
+  * ``*_naive``   — direct einsum/softmax math (attention) or the sequential
+                    recurrence (SSD); the correctness oracle.
+  * ``*_blocked`` / ``ssd_chunked`` — the block algorithm the kernels run;
+                    numerically equivalent to naive.
+
+``ssd_intra_chunk`` is the plain version of the SSD intra-chunk kernel alone
+(the body of the Pallas kernel in ``repro/kernels/ssd_scan.py``).
 
 ``ops`` sends CPU tensors here; CUDA tensors go to the hand-written kernels,
 which ``chip_smoke.py`` holds against these functions on the card.
@@ -12,7 +15,9 @@ which ``chip_smoke.py`` holds against these functions on the card.
 Conventions (throughout the port): q ``(B, Tq, Hq, D)``, k/v
 ``(B, Tk, Hkv, D)`` with ``Hq % Hkv == 0``; q head ``h`` reads kv head
 ``h // g``; masked scores are ``NEG_INF = -1e30`` (not ``-inf``); softmax in
-fp32; a row whose every key is masked returns 0.
+fp32; a row whose every key is masked returns 0.  SSD: x ``(b, t, nh, hd)``,
+dt ``(b, t, nh)``, A and D ``(nh,)``, B/C ``(b, t, n)``, state
+``(b, nh, hd, n)`` in fp32.
 """
 
 from __future__ import annotations
@@ -153,3 +158,134 @@ def decode_attention_naive(q: torch.Tensor, k_cache: torch.Tensor,
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(b, 1, hq, d).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD — naive recurrence oracle and the chunked (SSD) algorithm
+# --------------------------------------------------------------------------
+
+def ssd_naive(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+              h0: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSM recurrence (the oracle).  Returns y (b, t, nh, hd) in
+    x's dtype and the final state (b, nh, hd, n) in fp32."""
+    b, t, nh, hd = x.shape
+    n = B.shape[-1]
+    h = (torch.zeros((b, nh, hd, n), device=x.device) if h0 is None
+         else h0.float())
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    ys = []
+    for i in range(t):
+        dA = torch.exp(dtf[:, i] * A[None, :])                 # (b,nh)
+        dBx = torch.einsum("bn,bhp->bhpn", Bf[:, i],
+                           xf[:, i] * dtf[:, i, :, None])
+        h = h * dA[..., None, None] + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, i]))
+    y = torch.stack(ys, 1) + xf * D[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def _segsum(logs: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum(logs[..., j+1:i+1]) for
+    j <= i, -inf otherwise (the 1-semiseparable mask of the SSD paper)."""
+    t = logs.shape[-1]
+    cs = torch.cumsum(logs, -1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                 device=logs.device))
+    return torch.where(mask, out, -torch.inf)
+
+
+def _pad_chunks(x, dt, B, C, chunk: int):
+    """Pad the time axis to whole chunks of ``c = min(chunk, t)``; returns
+    the padded tensors, ``c`` and the chunk count."""
+    t = x.shape[1]
+    c = min(chunk, t)
+    nc = -(-t // c)
+    pad = nc * c - t
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    return x, dt, B, C, c, nc
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                chunk: int = 128, h0: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """State-space duality algorithm (Mamba-2 §6): quadratic attention-like
+    compute inside chunks + linear state recurrence across chunks."""
+    b, t, nh, hd = x.shape
+    n = B.shape[-1]
+    xp, dtp, Bp, Cp, c, nc = _pad_chunks(x, dt, B, C, chunk)
+    xf = xp.float().reshape(b, nc, c, nh, hd)
+    dtf = dtp.float().reshape(b, nc, c, nh)
+    Bf = Bp.float().reshape(b, nc, c, n)
+    Cf = Cp.float().reshape(b, nc, c, n)
+
+    dA = dtf * A[None, None, None, :]                    # (b,nc,c,nh)
+    dA_cs = torch.cumsum(dA, 2)
+    # 1. intra-chunk (quadratic, the "attention-like" part)
+    L = torch.exp(_segsum(dA.transpose(2, 3)))           # (b,nc,nh,i,j)
+    scores = torch.einsum("bzin,bzjn->bzij", Cf, Bf)
+    xdt = xf * dtf[..., None]                            # x̄ = x·dt
+    y_diag = torch.einsum("bzij,bzhij,bzjhp->bzihp", scores, L, xdt)
+    # 2. per-chunk final states
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)
+    states = torch.einsum("bzcn,bzch,bzchp->bzhpn", Bf, decay_states, xdt)
+    # 3. inter-chunk recurrence; h_in[z] is the state ENTERING chunk z
+    h = (torch.zeros((b, nh, hd, n), device=x.device) if h0 is None
+         else h0.float())
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])          # (b,nc,nh)
+    h_in = []
+    for z in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, z, :, None, None] + states[:, z]
+    h_in = torch.stack(h_in, 1)                          # (b,nc,nh,hd,n)
+    # 4. chunk-input contribution
+    in_decay = torch.exp(dA_cs)
+    y_off = torch.einsum("bzcn,bzch,bzhpn->bzchp", Cf, in_decay, h_in)
+    y = (y_diag + y_off).reshape(b, nc * c, nh, hd)[:, :t]
+    y = y + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, *, nh: int, hd: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The function of the SSD intra-chunk kernel, on its layouts.
+
+    xdt (b, nc, c, nh*hd), dacs (b, nc, c, nh) within-chunk cumsum of the
+    log-decay, B/C (b, nc, c, n).  Returns fp32 y_diag (b, nc, c, nh*hd) and
+    the chunks' outgoing states (b, nc, nh, n, hd)."""
+    b, nc, c, _ = xdt.shape
+    xh = xdt.float().reshape(b, nc, c, nh, hd)
+    dacs, B, C = dacs.float(), B.float(), C.float()
+    scores = torch.einsum("bzin,bzjn->bzij", C, B)
+    dh = dacs.transpose(2, 3)                            # (b,nc,nh,c)
+    tril = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                 device=xdt.device))
+    # select before the exp: exp(dacs_i - dacs_j) may overflow for j > i
+    L = torch.exp(torch.where(tril, dh[..., :, None] - dh[..., None, :],
+                              -torch.inf))
+    y = torch.einsum("bzij,bzhij,bzjhp->bzihp", scores, L, xh)
+    decay = torch.exp(dacs[:, :, -1:, :] - dacs)         # (b,nc,c,nh)
+    states = torch.einsum("bzcn,bzch,bzchp->bzhnp", B, decay, xh)
+    return y.reshape(b, nc, c, nh * hd), states
+
+
+def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+                    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                    D: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSM update.  h: (b,nh,hd,n); x: (b,nh,hd); dt: (b,nh);
+    B,C: (b,n).  Returns (y (b,nh,hd) in x's dtype, h_new fp32)."""
+    dA = torch.exp(dt * A[None, :])
+    dBx = torch.einsum("bn,bhp->bhpn", B.float(),
+                       x.float() * dt[..., None])
+    h_new = h * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", h_new, C.float())
+    y = y + x.float() * D[None, :, None]
+    return y.to(x.dtype), h_new

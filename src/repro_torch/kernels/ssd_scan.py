@@ -1,0 +1,141 @@
+"""The Mamba-2 SSD scan with its intra-chunk pass in a hand-written CUDA
+kernel (``csrc/ssd_intra_chunk.cu``): the port of
+``repro/kernels/ssd_scan.py``.
+
+The SSD algorithm splits into (a) a quadratic attention-like pass inside each
+chunk, which carries nearly all the FLOPs, and (b) a linear recurrence across
+the chunks' states.  (a) is the kernel; (b), the padding, the casts, the
+log-decay cumsum, ``y_off`` and the ``D`` skip stay in PyTorch here, as they
+stay in XLA in the JAX package.
+
+``ssd_intra_chunk`` takes CUDA tensors only: the kernel launches on the
+current stream, without a synchronisation, into outputs allocated here.  Its
+plain version is ``ref.ssd_intra_chunk``.  ``launches`` counts the kernel
+launches of this process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from ._wrap import raise_on_error
+from .ref import _pad_chunks
+
+launches = 0
+
+HEAD_DIMS = (8, 16, 32, 64, 128)
+# the kernel keeps a (32 x chunk) score strip and (32 x d_state) C rows in
+# shared memory; these bounds keep a block within the card's 227 KB
+MAX_CHUNK, MAX_STATE = 512, 256
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"ssd_intra_chunk_fwd": [
+    _I, _P, _P, _P, _P, _P, _P,            # hd, xdt, dacs, B, C, y, states
+    _I, _I, _I, _I, _I, _P]}               # b, nc, c, nh, n, stream
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name} is {x.dtype}, expected torch.float32")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on 16 bytes")
+
+
+def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, *, nh: int, hd: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xdt (b, nc, c, nh*hd), dacs (b, nc, c, nh), B/C (b, nc, c, n), all
+    fp32.  Returns (y_diag (b, nc, c, nh*hd), states (b, nc, nh, n, hd)) in
+    fp32.  Semantics of ``ref.ssd_intra_chunk``."""
+    global launches
+    if xdt.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel takes CUDA tensors, got {xdt.device}; "
+            "ops.* sends CPU tensors to the plain version")
+    if xdt.dim() != 4:
+        raise ValueError(f"xdt must be (b, nc, c, nh*hd), got "
+                         f"{tuple(xdt.shape)}")
+    b, nc, c, _ = xdt.shape
+    n = B.shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if c > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"chunk {c} and d_state {n} must be at most "
+                         f"{MAX_CHUNK} and {MAX_STATE}")
+    for name, x, shape in (("xdt", xdt, (b, nc, c, nh * hd)),
+                           ("dacs", dacs, (b, nc, c, nh)),
+                           ("B", B, (b, nc, c, n)), ("C", C, (b, nc, c, n))):
+        _check(name, x, shape, xdt.device)
+    lib = _build.load("ssd_intra_chunk", _SIGNATURES)
+    y = torch.empty_like(xdt)
+    states = torch.empty((b, nc, nh, n, hd), dtype=torch.float32,
+                         device=xdt.device)
+    stream = torch.cuda.current_stream(xdt.device).cuda_stream
+    err = lib.ssd_intra_chunk_fwd(
+        hd, xdt.data_ptr(), dacs.data_ptr(), B.data_ptr(), C.data_ptr(),
+        y.data_ptr(), states.data_ptr(), b, nc, c, nh, n, stream)
+    launches += 1
+    raise_on_error(err, "ssd_intra_chunk")
+    return y, states
+
+
+def chunk_operands(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, chunk: int
+                   ) -> tuple[torch.Tensor, ...]:
+    """The intra-chunk pass's fp32 operands, the time axis padded to whole
+    chunks of ``min(chunk, t)``: xdt = x·dt (b, nc, c, nh*hd), the
+    within-chunk cumsum of the log-decay dt·A (b, nc, c, nh), and B, C
+    (b, nc, c, n)."""
+    b, _, nh, hd = x.shape
+    n = B.shape[-1]
+    xp, dtp, Bp, Cp, c, nc = _pad_chunks(x, dt, B, C, chunk)
+    dtf = dtp.float().reshape(b, nc, c, nh)
+    xdt = (xp.float().reshape(b, nc, c, nh, hd) * dtf[..., None]).reshape(
+        b, nc, c, nh * hd)
+    dacs = torch.cumsum(dtf * A[None, None, None, :], 2)
+    return (xdt, dacs, Bp.float().reshape(b, nc, c, n).contiguous(),
+            Cp.float().reshape(b, nc, c, n).contiguous())
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, D: torch.Tensor, *, chunk: int = 128,
+        h0: torch.Tensor | None = None, intra_chunk=ssd_intra_chunk
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ref.ssd_chunked`` with the quadratic pass in ``intra_chunk``: the
+    CUDA kernel, or, in the CPU tests of this function's own code,
+    ``ref.ssd_intra_chunk``.  Returns y (b, t, nh, hd) in x's dtype and the
+    final state (b, nh, hd, n) in fp32."""
+    b, t, nh, hd = x.shape
+    n = B.shape[-1]
+    xdt, dA_cs, Bf, Cf = chunk_operands(x, dt, A, B, C, chunk)
+    nc, c = xdt.shape[1:3]
+
+    y_diag, states = intra_chunk(xdt, dA_cs, Bf, Cf, nh=nh, hd=hd)
+    states = states.transpose(3, 4)                      # (b,nc,nh,hd,n)
+
+    # inter-chunk recurrence (tiny, stays in PyTorch); h_in[z] is the state
+    # entering chunk z
+    h = (torch.zeros((b, nh, hd, n), device=x.device) if h0 is None
+         else h0.float())
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])          # (b,nc,nh)
+    h_in = []
+    for z in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, z, :, None, None] + states[:, z]
+    h_in = torch.stack(h_in, 1)
+
+    in_decay = torch.exp(dA_cs)                          # (b,nc,c,nh)
+    y_off = torch.einsum("bzcn,bzch,bzhpn->bzchp", Cf, in_decay, h_in)
+    y = y_diag.reshape(b, nc, c, nh, hd) + y_off
+    y = y.reshape(b, nc * c, nh, hd)[:, :t]
+    y = y + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), h

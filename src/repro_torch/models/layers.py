@@ -1,9 +1,11 @@
-"""Building blocks of the dense decoder, ported from ``repro.models.layers``.
+"""Building blocks of the dense, SSM and hybrid decoders, ported from
+``repro.models.layers``.
 
 Parameters are plain dicts of tensors with the JAX package's names and
-layouts.  Compute runs in bf16 with fp32 norm, rope angles and softmax, as in
-the JAX package.  Attention dispatches through ``repro_torch.kernels.ops``:
-the CUDA kernels on the card, the plain versions on the CPU.
+layouts.  Compute runs in bf16 with fp32 norm, rope angles, softmax and SSM
+state, as in the JAX package.  Attention and the SSD scan dispatch through
+``repro_torch.kernels.ops``: the CUDA kernels on the card, the plain versions
+on the CPU.
 """
 
 from __future__ import annotations
@@ -125,6 +127,66 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(cfg, xc @ p["w_up"].to(COMPUTE_DTYPE))
     return (h @ p["w_down"].to(COMPUTE_DTYPE)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# --------------------------------------------------------------------------
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 conv_state: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv, width cw.  xbc: (B,T,C); w: (cw,C).
+    conv_state: (B,cw-1,C) carried context (decode) or None (prefill).
+    Returns (out (B,T,C), new_state (B,cw-1,C))."""
+    cw, t = w.shape[0], xbc.shape[1]
+    if conv_state is None:
+        conv_state = xbc.new_zeros((xbc.shape[0], cw - 1, xbc.shape[2]))
+    full = torch.cat([conv_state, xbc], 1)                 # (B,T+cw-1,C)
+    out = sum(full[:, i:i + t] * w[i][None, None] for i in range(cw))
+    return F.silu(out), full[:, -(cw - 1):]
+
+
+def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
+                cache: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """One Mamba-2 mixer.  cache = {"h": (B,nh,hd,n), "conv": (B,cw-1,C)}.
+
+    mode="decode" (T == 1) steps the recurrence from ``cache`` and writes the
+    new state into it in place (the engine owns the cache; the JAX engine
+    rebuilds it functionally instead); other modes run the chunked scan from
+    a zero state and return the state they end in."""
+    spec = cfg.ssm
+    b, t, d = x.shape
+    di, n, nh = spec.d_inner(d), spec.d_state, spec.n_heads(d)
+    xc = x.to(COMPUTE_DTYPE)
+    zxbcdt = xc @ p["w_in"].to(COMPUTE_DTYPE)
+    z, xs, B, C, dt = torch.split(zxbcdt, [di, di, n, n, nh], -1)
+    conv_in = torch.cat([xs, B, C], -1)
+    conv_state = None if cache is None else cache["conv"]
+    conv_out, new_conv = _causal_conv(conv_in, p["conv"].to(COMPUTE_DTYPE),
+                                      conv_state)
+    xs, B, C = torch.split(conv_out, [di, n, n], -1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())      # (B,T,nh)
+    A = -torch.exp(p["A_log"].float())
+    xh = xs.reshape(b, t, nh, spec.head_dim)
+    D = p["D"].float()
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode mode needs the SSM cache")
+        y, h_new = ops.ssd_decode_step(cache["h"], xh[:, 0], dt[:, 0], A,
+                                       B[:, 0], C[:, 0], D)
+        y = y[:, None]                                      # (B,1,nh,hd)
+        cache["h"].copy_(h_new)
+        cache["conv"].copy_(new_conv)
+        new_cache = cache
+    else:
+        y, h_new = ops.ssd(xh, dt, A, B, C, D, chunk=spec.chunk,
+                           h0=None if cache is None else cache["h"])
+        new_cache = {"h": h_new, "conv": new_conv}
+    y = y.reshape(b, t, di)
+    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm"])
+    out = y.to(COMPUTE_DTYPE) @ p["w_out"].to(COMPUTE_DTYPE)
+    return out.to(x.dtype), new_cache
 
 
 # --------------------------------------------------------------------------

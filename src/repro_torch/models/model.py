@@ -1,4 +1,5 @@
-"""The port's model API, ``repro.models.model.Model`` for the dense family.
+"""The port's model API, ``repro.models.model.Model`` for the dense, SSM and
+hybrid families.
 
 ``build_model(cfg)`` returns a ``Model`` exposing ``init``, ``init_cache``
 and the three step kinds ``apply_train / apply_prefill / apply_decode``.
@@ -16,9 +17,9 @@ from repro_torch import device as _device
 from . import transformer
 from .config import ArchConfig
 
-# the slice that ports each family this slice does not serve
-_LATER = {"moe": "the MoE slice", "ssm": "the SSM slice",
-          "hybrid": "the SSM slice", "audio": "the encoder-decoder/VLM slice",
+FAMILIES = ("dense", "ssm", "hybrid")
+# the slice that ports each family the port does not serve yet
+_LATER = {"moe": "the MoE slice", "audio": "the encoder-decoder/VLM slice",
           "vlm": "the encoder-decoder/VLM slice"}
 
 
@@ -27,17 +28,18 @@ class Model:
     cfg: ArchConfig
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{self.cfg.name}: the {self.cfg.family!r} family is ported "
-                f"with {_LATER[self.cfg.family]}; this port serves 'dense'")
+                f"with {_LATER[self.cfg.family]}; this port serves "
+                f"{', '.join(FAMILIES)}")
 
     # ------------------------------------------------------------------ params
     def init(self, generator: torch.Generator, device="cuda",
              dtype: torch.dtype = torch.float32) -> dict:
-        """Seeded parameters on ``device``; matmul weights and embeddings
-        in ``dtype``, norm weights fp32.  ``generator`` must live on
-        ``device``."""
+        """Seeded parameters on ``device``; matmul weights, embeddings and
+        the SSM mixer's A_log/D/dt_bias/norm in ``dtype``, norm weights
+        fp32.  ``generator`` must live on ``device``."""
         dev = _device.resolve(device)
         return transformer.init_params(self.cfg, generator, dev, dtype)
 
@@ -55,7 +57,7 @@ class Model:
     def apply_prefill(self, params: dict, batch: dict
                       ) -> tuple[torch.Tensor, dict]:
         """Last-position logits (B, 1, V) and the prompt's cache
-        (L, B, T, Hkv, hd)."""
+        (``transformer.forward``)."""
         return transformer.forward(self.cfg, params, batch["tokens"],
                                    mode="prefill",
                                    lengths=batch.get("lengths"),

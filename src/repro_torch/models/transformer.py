@@ -1,9 +1,11 @@
-"""The dense decoder-only LM, ported from the dense path of
+"""The decoder-only LM of the dense, SSM and hybrid families, ported from
 ``repro.models.transformer``.
 
 Parameters are stacked along a leading L axis as in the JAX package (so
 ``convert.from_jax`` maps them one to one); a Python loop over layers takes
-the place of ``lax.scan``.  Non-uniform attention (gemma3's local:global)
+the place of ``lax.scan``.  An ``ssm`` layer is a Mamba-2 mixer alone; a
+``hybrid`` layer runs attention and the mixer in parallel on the same input
+and averages them.  Non-uniform attention (gemma3's local:global)
 rides a per-layer window list: global layers get ``kv_len``.  Remat and the
 bf16 carry barrier are training concerns and come with the training slice.
 """
@@ -44,7 +46,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
                 dtype=torch.float32) -> dict:
     """Full parameter tree with the JAX init's distributions: projections
     N(0, 1/fan_in), embedding and head N(0, 0.02²), norms 0 (rmsnorm scales
-    by 1 + w) or 1/0 (layernorm)."""
+    by 1 + w) or 1/0 (layernorm).  The layers hold what the family needs:
+    ``ln1`` always, then ``ssm`` alone (ssm) or ``attn``, ``ssm`` (hybrid),
+    ``ln2`` and ``mlp``."""
     d, nl = cfg.d_model, cfg.n_layers
     hq, hkv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
 
@@ -55,20 +59,42 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
     emb = {"embedding": _normal((cfg.vocab, d), 0.02, gen, device, dtype)}
     if not cfg.tie_embeddings:
         emb["head"] = _normal((d, cfg.vocab), 0.02, gen, device, dtype)
-    if cfg.act in ("swiglu", "geglu"):
-        mlp = {"w_gate": proj(d, ff), "w_up": proj(d, ff),
-               "w_down": proj(ff, d)}
+    layers = {"ln1": _norm_params(cfg, (nl, d), device)}
+    if cfg.family == "ssm":
+        layers["ssm"] = _ssm_params(cfg, proj, device, dtype)
     else:
-        mlp = {"w_up": proj(d, ff), "w_down": proj(ff, d)}
-    layers = {
-        "ln1": _norm_params(cfg, (nl, d), device),
-        "attn": {"wq": proj(d, hq * hd), "wk": proj(d, hkv * hd),
-                 "wv": proj(d, hkv * hd), "wo": proj(hq * hd, d)},
-        "ln2": _norm_params(cfg, (nl, d), device),
-        "mlp": mlp,
-    }
+        layers["attn"] = {"wq": proj(d, hq * hd), "wk": proj(d, hkv * hd),
+                          "wv": proj(d, hkv * hd), "wo": proj(hq * hd, d)}
+        if cfg.family == "hybrid":
+            layers["ssm"] = _ssm_params(cfg, proj, device, dtype)
+        layers["ln2"] = _norm_params(cfg, (nl, d), device)
+        if cfg.act in ("swiglu", "geglu"):
+            layers["mlp"] = {"w_gate": proj(d, ff), "w_up": proj(d, ff),
+                             "w_down": proj(ff, d)}
+        else:
+            layers["mlp"] = {"w_up": proj(d, ff), "w_down": proj(ff, d)}
     return {"embed": emb, "layers": layers,
             "final_norm": _norm_params(cfg, (d,), device)}
+
+
+def _ssm_params(cfg: ArchConfig, proj, device, dtype) -> dict:
+    """One Mamba-2 mixer per layer, as ``repro.models.layers.ssm_params``:
+    A_log = log(linspace(1, 16, nh)), D = 1, dt_bias = norm = 0, all four in
+    the parameter dtype (they are not norm weights); the rest N(0, 1/fan_in)
+    with the conv's fan_in its width."""
+    s, d, nl = cfg.ssm, cfg.d_model, cfg.n_layers
+    di, n, nh = s.d_inner(d), s.d_state, s.n_heads(d)
+
+    def const(values):
+        return values.to(device=device, dtype=dtype).expand(nl, -1).clone()
+
+    return {"w_in": proj(d, 2 * di + 2 * n + nh),      # z, x, B, C, dt
+            "conv": proj(s.conv_width, di + 2 * n),
+            "A_log": const(torch.log(torch.linspace(1.0, 16.0, nh))),
+            "D": const(torch.ones(nh)),
+            "dt_bias": const(torch.zeros(nh)),
+            "norm": const(torch.zeros(di)),
+            "w_out": proj(di, d)}
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -99,10 +125,25 @@ def window_schedule(cfg: ArchConfig, kv_len: int) -> list[int] | None:
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
-    """Stacked (leading L) decode cache."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
-            "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device)}
+    """Stacked (leading L) decode cache: k/v (L, B, S, Hkv, hd) in bf16
+    unless the family is ``ssm``; for ``ssm`` and ``hybrid`` the SSM state h
+    (L, B, nh, hd, n) in fp32 and the conv context (L, B, cw-1, di+2n) in
+    bf16."""
+    nl = cfg.n_layers
+    cache = {}
+    if cfg.family != "ssm":
+        shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
+        cache["v"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        di, n, nh = s.d_inner(cfg.d_model), s.d_state, s.n_heads(cfg.d_model)
+        cache["h"] = torch.zeros((nl, batch, nh, s.head_dim, n),
+                                 dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros((nl, batch, s.conv_width - 1,
+                                     di + 2 * n), dtype=CACHE_DTYPE,
+                                    device=device)
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -113,13 +154,28 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
                 positions: torch.Tensor, window: int | None,
                 layer_cache: dict | None, lengths: torch.Tensor | None
                 ) -> tuple[torch.Tensor, dict]:
+    """One layer; returns its output and its cache entries (the prompt's
+    for prefill, the updated views of ``layer_cache`` for decode)."""
+    def views(*keys):
+        return (None if layer_cache is None else
+                {k: layer_cache[k] for k in keys})
+
     h = L.apply_norm(cfg, p["ln1"], x)
-    a, kv = L.attention(cfg, p["attn"], h, positions=positions, mode=mode,
-                        causal=True, window=window, cache=layer_cache,
-                        lengths=lengths)
+    if cfg.family == "ssm":
+        y, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
+                              cache=views("h", "conv"))
+        return x + y, sc
+    a, new_cache = L.attention(cfg, p["attn"], h, positions=positions,
+                               mode=mode, causal=True, window=window,
+                               cache=views("k", "v"), lengths=lengths)
+    if cfg.family == "hybrid":
+        s, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
+                              cache=views("h", "conv"))
+        new_cache = {**new_cache, **sc}
+        a = (a + s) * 0.5                   # parallel heads, mean-fused
     x = x + a
     h2 = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.mlp(cfg, p["mlp"], h2), kv
+    return x + L.mlp(cfg, p["mlp"], h2), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -134,9 +190,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """tokens: (B, T) integer.
 
     mode="train"/"prefill": full sequence; prefill returns the built cache
-    (L, B, T, Hkv, hd).  mode="decode": T == 1, needs ``cache`` + ``lengths``
-    (new token position = lengths-1); the cache is updated in place and
-    returned.  ``logits_tail``: only unembed the last N positions.
+    (k/v (L, B, T, Hkv, hd); h (L, B, nh, hd, n) and conv (L, B, cw-1, C)
+    for the SSM families).  mode="decode": T == 1, needs ``cache`` +
+    ``lengths`` (new token position = lengths-1); the cache is updated in
+    place and returned.  ``logits_tail``: only unembed the last N positions.
     """
     b, t = tokens.shape
     x = L.embed(params["embed"], tokens).to(torch.bfloat16)
@@ -144,24 +201,23 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
         positions = (lengths - 1)[:, None]
-        kv_len = cache["k"].shape[2]
+        kv_len = cache["k"].shape[2] if "k" in cache else t
     else:
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
         kv_len = t
     wsched = window_schedule(cfg, kv_len)
-    built: dict[str, list] = {"k": [], "v": []}
+    built: dict[str, list] = {}
     for i in range(cfg.n_layers):
         # a window of -1 means "no window"
         w = None if wsched is None else (NO_WINDOW if wsched[i] < 0
                                          else wsched[i])
-        lc = (None if cache is None else
-              {"k": cache["k"][i], "v": cache["v"][i]})
-        x, kv = apply_layer(cfg, layer_params(params["layers"], i), x,
-                            mode=mode, positions=positions, window=w,
-                            layer_cache=lc, lengths=lengths)
+        lc = None if cache is None else {k: v[i] for k, v in cache.items()}
+        x, lcache = apply_layer(cfg, layer_params(params["layers"], i), x,
+                                mode=mode, positions=positions, window=w,
+                                layer_cache=lc, lengths=lengths)
         if mode == "prefill":
-            built["k"].append(kv["k"])
-            built["v"].append(kv["v"])
+            for k, v in lcache.items():
+                built.setdefault(k, []).append(v)
     new_cache = None
     if mode == "prefill":
         new_cache = {k: torch.stack(v) for k, v in built.items()}

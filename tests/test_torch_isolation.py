@@ -63,6 +63,14 @@ def test_entry_points_refuse_cuda_without_a_gpu():
         ServingEngine(model, params)                 # cuda is the default
     with pytest.raises(RuntimeError, match="cuda"):
         model.init_cache(1, 8)
+    ssm = build_model(get_config("mamba2-780m").reduced())
+    with pytest.raises(RuntimeError, match="cuda"):
+        ssm.init(torch.Generator(), device="cuda")
+    ssm_params = ssm.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(ssm, ssm_params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ssm.init_cache(1, 8)
     with pytest.raises(ValueError, match="backend"):
         ops.set_backend("cuda")
 

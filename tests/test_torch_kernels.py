@@ -18,7 +18,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from test_kernels import DECODE_SHAPES, SHAPES  # noqa: E402
+from test_kernels import DECODE_SHAPES, SHAPES, SSD_SHAPES  # noqa: E402
 
 # the tolerances of tests/test_kernels.py::TOL
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
@@ -178,3 +178,4 @@ def test_chip_smoke_checks_the_reference_shape_lists():
     spec.loader.exec_module(chip_smoke)
     assert chip_smoke.SHAPES == SHAPES
     assert chip_smoke.DECODE_SHAPES == DECODE_SHAPES
+    assert chip_smoke.SSD_SHAPES == SSD_SHAPES
