@@ -9,12 +9,15 @@ each of which exits non-zero when it fails:
 
 1. the card (``nvidia-smi`` name and power limit); the three kernels are
    built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
-   parallel);
+   parallel), and ptxas's registers and spill bytes are logged per
+   instantiation (a bf16 tensor-core instantiation that spills fails);
 2. each CUDA kernel against its plain PyTorch version on the card: the shape
    lists of ``tests/test_kernels.py`` (attention in fp32 and bf16 at its
    ``TOL``, the SSD pass and the whole scan at its atol 1e-4), then the
    serving paths' shapes (gemma-2b attention: head_dim 256, MQA, ragged,
-   windowed; mamba2-780m's and hymba-1.5b's SSD at chunk 128 and 39);
+   windowed, prompts of 441 and 39 tokens, decode lengths 0/1/32/1024;
+   hymba-1.5b attention: 25 heads over 5, head_dim 64, window 1024, in bf16
+   and fp32; mamba2-780m's and hymba-1.5b's SSD at chunk 128 and 39);
 3. three serving paths at full width, each a ``ServingEngine(max_batch=4,
    max_len=1024)`` on seeded random bf16 weights, every kernel's launch
    counter set to 0 just before the run and read just after:
@@ -24,11 +27,15 @@ each of which exits non-zero when it fails:
    - mamba2-780m, all 48 layers, 8 requests: the SSD kernel and no
      attention kernel, then prefill-then-decode against the full forward
      and a profiler window;
-   - hymba-1.5b, all 32 layers, 4 requests: all three kernels;
+   - hymba-1.5b, all 32 layers, 4 requests: all three kernels, and a
+     profiler window;
 4. times at the serving shapes: kernel, plain version, one PyTorch library
    call where one computes the same function (``scaled_dot_product_attention``
-   for attention, a yardstick the port never calls; none for the SSD pass)
-   and the card's bound; engine tokens/s, prefill and decode-step ms.
+   for attention, a yardstick the port never calls; none for the SSD pass),
+   their ratio and the card's bound; engine tokens/s, prefill and
+   decode-step ms.  Kernel times are device times: the timed call waits in
+   the stream behind a sleep kernel, so the host's enqueue is not in them
+   (the attention lines also give the time with it).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -81,6 +88,11 @@ SSD_ATOL = 1e-4
 
 # gemma-2b attention: 8 query heads over one kv head, head_dim 256
 HQ, HKV, HD = 8, 1, 256
+# hymba-1.5b attention: 25 query heads over 5 kv heads, head_dim 64, every
+# layer windowed at 1024
+HYMBA_ATTN = (25, 5, 64, 1024)
+# the engine's longest and shortest prompts: ragged q and kv tiles
+RAGGED_PREFILL = (441, 39)
 # prefill (B, T, window): the engine prefills one prompt of 32..512 tokens
 # (the first entry, recorded in the kernels line); the windowed case is
 # gemma3's 512-token local layer
@@ -89,7 +101,7 @@ PREFILL = [(1, 512, None), (1, 128, None), (4, 512, None), (2, 1024, 512)]
 # first entry holds the engine's lengths (prompts of up to 512 tokens plus
 # 32 new ones) and is recorded in the kernels line.
 DECODE_LENS = [([544, 400, 256, 96], None), ([1024, 700, 33, 1], None),
-               ([1024, 517, 2, 0], 512)]
+               ([1024, 517, 2, 0], 512), ([0, 1, 32, 1024], None)]
 # the SSD pass at the serving widths, (b, t, nh, hd, n, chunk): a 512-token
 # prompt (four chunks of 128, the first entry is recorded in the kernels
 # line) and a 39-token one (one short chunk), for mamba2-780m (48 heads,
@@ -101,7 +113,9 @@ HYBRID_REQUESTS = 4
 # published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 tensor
 # cores, fp32 outside the tensor cores, memory
 PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
-# each kernel's wrapper module, whose ``launches`` counts its launches
+# each kernel's wrapper module, whose ``launches`` counts its calls that
+# launched the kernel (a decode-attention call is two launches: split and
+# combine)
 COUNTERS = {"flash_attention": fa, "decode_attention": da,
             "ssd_intra_chunk": ssd_scan}
 
@@ -185,6 +199,40 @@ def check_ssd(shape, seed) -> float:
     return err
 
 
+def check_serving_attention(hq, hkv, hd, window, prefill, decode_lens,
+                            seed, tag) -> tuple[float, float]:
+    """Flash and decode attention at one model's serving heads against their
+    plain versions, in bf16 and fp32; prefill (b, t) over t tokens with
+    lengths t, 3t/4, ..., decode over a (4, 1024) cache.  Returns the
+    largest bf16 errors (flash, decode)."""
+    worst = [0.0, 0.0]
+    for i, ((b, t), dtype) in enumerate(
+            (c, dt) for c in prefill for dt in TOL):
+        lens = [t, t * 3 // 4, t // 2, t // 4][:b]
+        args, kw = flash_case(b, t, t, hq, hkv, hd, window, True, dtype, lens,
+                              seed + i)
+        err = _check(f"flash {tag} B={b} T={t} window={window} {dtype}",
+                     fa.flash_attention(*args, **kw),
+                     ref.attention_naive(*args, **kw), TOL[dtype])
+        log(f"  flash   {tag} B={b} T={t:4d} window={window} {dtype}: "
+            f"max|err| {err:.3e}")
+        if dtype == torch.bfloat16:
+            worst[0] = max(worst[0], err)
+    for i, (lens, dtype) in enumerate(
+            (c, dt) for c in decode_lens for dt in TOL):
+        args, lt = decode_case(MAX_BATCH, MAX_LEN, hq, hkv, hd, dtype, lens,
+                               seed + 50 + i)
+        err = _check(f"decode {tag} lens={lens} window={window} {dtype}",
+                     da.decode_attention(*args, lt, window=window),
+                     ref.decode_attention_naive(*args, lt, window=window),
+                     TOL[dtype])
+        log(f"  decode  {tag} B=4 S=1024 lens={lens} window={window} "
+            f"{dtype}: max|err| {err:.3e}")
+        if dtype == torch.bfloat16:
+            worst[1] = max(worst[1], err)
+    return worst[0], worst[1]
+
+
 def check_kernels() -> dict:
     """Every kernel against its plain version; returns the largest error at
     the main path's shapes per kernel."""
@@ -239,6 +287,15 @@ def check_kernels() -> dict:
             if dtype == torch.bfloat16:
                 worst["decode_attention"] = max(worst["decode_attention"],
                                                 err)
+    gemma_flash, _ = check_serving_attention(
+        HQ, HKV, HD, None, [(1, t) for t in RAGGED_PREFILL], [], 850,
+        "gemma-2b")
+    worst["flash_attention"] = max(worst["flash_attention"], gemma_flash)
+    hymba_flash, hymba_decode = check_serving_attention(
+        *HYMBA_ATTN, [(1, t) for t in RAGGED_PREFILL],
+        [DECODE_LENS[0][0], DECODE_LENS[3][0]], 900, "hymba-1.5b")
+    worst["flash_attention"] = max(worst["flash_attention"], hymba_flash)
+    worst["decode_attention"] = max(worst["decode_attention"], hymba_decode)
     for i, shape in enumerate(SSD_PREFILL):
         err = check_ssd(shape, 700 + i)
         log(f"  ssd     {shape}: max|err| {err:.3e}")
@@ -338,7 +395,8 @@ def check_prefill_then_decode(model, params, cfg, limit: float) -> float:
 PTD_LIMIT = {"gemma-2b": 1e-1, "mamba2-780m": 2e-1}
 
 
-OUR_KERNELS = ("flash_kernel", "decode_kernel", "ssd_intra_chunk_kernel")
+OUR_KERNELS = ("flash_bf16", "flash_f32", "decode_split", "decode_combine",
+               "ssd_intra_chunk_kernel")
 
 
 def decode_breakdown(model, params, prompts, steps: int = 8) -> str:
@@ -380,15 +438,27 @@ def decode_breakdown(model, params, prompts, steps: int = 8) -> str:
             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
 
 
-def time_ms(fn, flush: torch.Tensor | None, reps: int = 20) -> float:
+# a sleep kernel this long (about a millisecond) keeps the device busy while
+# the host enqueues the timed call, so that the events time the device alone
+SLEEP_CYCLES = 2_000_000
+
+
+def time_ms(fn, flush: torch.Tensor | None, reps: int = 20,
+            queued: bool = True) -> float:
     """Median over ``reps`` of CUDA-event time around one call, after a
     warm-up call; ``flush`` (a buffer larger than L2) is rewritten before
-    each call where the real caller finds its inputs cold."""
+    each call where the real caller finds its inputs cold.  ``queued``: the
+    call is enqueued behind a sleep kernel, so the time is the device's
+    (its kernels and the gaps between them); otherwise the device also
+    waits for the host to enqueue the call, as a lone call in an idle
+    stream does."""
     fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -397,6 +467,17 @@ def time_ms(fn, flush: torch.Tensor | None, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _times(kernel, plain, library, flush) -> dict:
+    """Device times of the kernel, its plain version and the library call,
+    and the kernel's and the library call's times with the host's enqueue
+    (``*_call_ms``)."""
+    return dict(
+        ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
+        library_ms=time_ms(library, flush),
+        call_ms=time_ms(kernel, flush, queued=False),
+        library_call_ms=time_ms(library, flush, queued=False))
 
 
 def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS
@@ -412,9 +493,10 @@ def _sdpa(q, k, v, mask):
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def time_flash(b, t, win, flush) -> dict:
+def time_flash(b, t, win, flush, heads=(HQ, HKV, HD)) -> dict:
+    hq, hkv, hd = heads
     lens = [t, t * 3 // 4, t // 2, t // 4][:b]
-    args, kw = flash_case(b, t, t, HQ, HKV, HD, win, True, torch.bfloat16,
+    args, kw = flash_case(b, t, t, hq, hkv, hd, win, True, torch.bfloat16,
                           lens, 400)
     q, k, v = args
     pos = torch.arange(t, device="cuda")
@@ -423,37 +505,37 @@ def time_flash(b, t, win, flush) -> dict:
     if win is not None:
         mask &= (pos[None, :] > pos[:, None] - win)[None]
     pairs = float(mask.sum())
-    flops = 4.0 * HQ * HD * pairs
+    flops = 4.0 * hq * hd * pairs
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b
     bound, by = _bound(flops, nbytes)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in args)
     m4 = mask[:, None]
     return dict(
-        ms=time_ms(lambda: fa.flash_attention(*args, **kw), flush),
-        plain_ms=time_ms(lambda: ref.attention_naive(*args, **kw), flush),
-        library_ms=time_ms(lambda: _sdpa(qt, kt, vt, m4), flush),
+        **_times(lambda: fa.flash_attention(*args, **kw),
+                 lambda: ref.attention_naive(*args, **kw),
+                 lambda: _sdpa(qt, kt, vt, m4), flush),
         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
 
 
-def time_decode(lens, win, flush) -> dict:
-    args, lt = decode_case(MAX_BATCH, MAX_LEN, HQ, HKV, HD, torch.bfloat16,
+def time_decode(lens, win, flush, heads=(HQ, HKV, HD)) -> dict:
+    hq, hkv, hd = heads
+    args, lt = decode_case(MAX_BATCH, MAX_LEN, hq, hkv, hd, torch.bfloat16,
                            lens, 500)
     q, kc, vc = args
     w = 2 ** 30 if win is None else win
     valid = [max(0, min(n, MAX_LEN) - max(0, n - w)) for n in lens]
-    per_pos = 2 * HKV * HD * 2                         # k and v, bf16
+    per_pos = 2 * hkv * hd * 2                         # k and v, bf16
     nbytes = float(sum(valid) * per_pos + 2 * 2 * q.numel() + 4 * len(lens))
-    flops = 4.0 * HQ * HD * sum(valid)
+    flops = 4.0 * hq * hd * sum(valid)
     bound, by = _bound(flops, nbytes)
     pos = torch.arange(MAX_LEN, device="cuda")
     mask = (pos[None] < lt[:, None].long()) & (pos[None] >= lt[:, None] - w)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in args)
     m4 = mask[:, None, None]
     return dict(
-        ms=time_ms(lambda: da.decode_attention(*args, lt, window=win), flush),
-        plain_ms=time_ms(
-            lambda: ref.decode_attention_naive(*args, lt, window=win), flush),
-        library_ms=time_ms(lambda: _sdpa(qt, kt, vt, m4), flush),
+        **_times(lambda: da.decode_attention(*args, lt, window=win),
+                 lambda: ref.decode_attention_naive(*args, lt, window=win),
+                 lambda: _sdpa(qt, kt, vt, m4), flush),
         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
 
 
@@ -515,6 +597,36 @@ def serve(aid: str, n_requests: int, kernels, smi: str):
     return cfg, model, params, prompts, run
 
 
+# the tensor-core instantiations, which must not spill (their accumulators
+# live in registers)
+TENSOR_CORE_KERNELS = ("flash_bf16", "decode_split_bf16")
+
+
+def log_ptxas(kname: str, report: str) -> None:
+    """Registers and spill bytes per kernel instantiation from ptxas's
+    report; raises if a tensor-core instantiation spills."""
+    entries = re.findall(r"Compiling entry function '(\w+)'.*?"
+                         r"(\d+) bytes spill stores.*?Used (\d+) registers",
+                         report, flags=re.S)
+    names = [n for n, _, _ in entries]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.split("\n")
+    except (OSError, subprocess.SubprocessError):
+        pass                                 # keep the mangled names
+    log(f"  ptxas {kname}: {len(entries)} instantiations")
+    for name, (_, spill, regs) in zip(names, entries):
+        short = re.sub(r"\(.*", "", name.replace("(anonymous namespace)::",
+                                                  ""))
+        log(f"    {short}: {regs} registers, {spill} bytes spill stores")
+        if int(spill) and any(k in name for k in TENSOR_CORE_KERNELS):
+            raise AssertionError(f"{short} spills {spill} bytes")
+    for line in report.splitlines():
+        if "warning" in line.lower():
+            log(f"    {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -534,13 +646,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(_build.KERNELS)} "
         f"kernels into {_build.BUILD_DIR}")
     for kname in _build.KERNELS:
-        report = _build.build_log(kname)
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", report)]
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                             report)]
-        log(f"  ptxas {kname}: {len(regs)} instantiations, at most "
-            f"{max(regs, default=0)} registers and "
-            f"{max(spills, default=0)} bytes of spill stores")
+        log_ptxas(kname, _build.build_log(kname))
 
     # 2. kernels against their plain versions
     worst = check_kernels()
@@ -569,25 +675,40 @@ def main() -> int:
     del params, model, run
     torch.cuda.empty_cache()
 
-    serve("hymba-1.5b", HYBRID_REQUESTS, tuple(COUNTERS), smi)
+    cfg, model, params, prompts, run = serve(
+        "hymba-1.5b", HYBRID_REQUESTS, tuple(COUNTERS), smi)
+    log(f"hymba-1.5b where the time goes: "
+        f"{decode_breakdown(model, params, prompts)} [{smi}]")
+    del params, model, run
     torch.cuda.empty_cache()
 
     # 4. times at the main path's shapes
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = {}
-    for b, t, win in PREFILL:
-        r = time_flash(b, t, win, None)       # q/k/v were just produced: warm
-        log(f"time flash  B={b} T={t:4d} window={win}: kernel "
+    hymba_heads = HYMBA_ATTN[:3]
+    for b, t, win, heads in ([(*c, (HQ, HKV, HD)) for c in PREFILL]
+                             + [(1, RAGGED_PREFILL[0], HYMBA_ATTN[3],
+                                 hymba_heads)]):
+        r = time_flash(b, t, win, None, heads)  # q/k/v just produced: warm
+        log(f"time flash  heads={heads} B={b} T={t:4d} window={win}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}) [{smi}]")
+            f"{r['library_ms']:.4f} ms, kernel/sdpa "
+            f"{r['ms'] / r['library_ms']:.2f}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); with the host's enqueue: kernel "
+            f"{r['call_ms']:.4f} ms, sdpa {r['library_call_ms']:.4f} ms "
+            f"[{smi}]")
         records.setdefault("flash_attention", r)
-    for lens, win in DECODE_LENS[:2]:
-        r = time_decode(lens, win, flush)     # the cache is cold, as in serving
-        log(f"time decode B=4 S=1024 lens={lens} window={win}: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}) [{smi}]")
+    for lens, win, heads in ([(*c, (HQ, HKV, HD)) for c in DECODE_LENS[:2]]
+                             + [(DECODE_LENS[0][0], HYMBA_ATTN[3],
+                                 hymba_heads)]):
+        r = time_decode(lens, win, flush, heads)  # cold cache, as in serving
+        log(f"time decode heads={heads} B=4 S=1024 lens={lens} window={win}: "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{r['library_ms']:.4f} ms, kernel/sdpa "
+            f"{r['ms'] / r['library_ms']:.2f}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); with the host's enqueue: kernel "
+            f"{r['call_ms']:.4f} ms, sdpa {r['library_call_ms']:.4f} ms "
+            f"[{smi}]")
         records.setdefault("decode_attention", r)
     for shape in SSD_PREFILL[::2]:
         r = time_ssd(shape)

@@ -1,12 +1,18 @@
-// One kv tile of the online-softmax attention step, shared by
-// flash_attention.cu (prefill) and decode_attention.cu (one new token).
+// Tile routines of the attention kernels, flash_attention.cu (prefill) and
+// decode_attention.cu (one new token).
 //
-// A thread block holds `rows` query rows in shared memory (q tile rows for
-// prefill, the G queries of one GQA group for decode), walks the keys in
-// tiles of BK = 32 positions, and keeps the running (m, l, acc) of every row
-// in shared memory, in fp32, as the TPU kernels keep them in VMEM scratch.
-// Scores, probabilities and the PV product are plain fp32 FMAs on the CUDA
-// cores: no tensor cores yet (wgmma comes in a later change).
+// Two families, chosen by dtype only:
+//
+// * fp32: the scalar tile.  A thread block holds `rows` query rows in
+//   shared memory (q tile rows for prefill, the G queries of one GQA group
+//   for decode), walks the keys in tiles of BK = 32 positions, and keeps the
+//   running (m, l, acc) of every row in shared memory, in fp32.  Scores,
+//   probabilities and PV are fp32 FMAs on the CUDA cores: bf16 or TF32
+//   tensor cores could not hold the fp32 tolerance of the reference (2e-5).
+// * bf16: tiles stay bf16 in shared memory, filled by cp.async 16-byte
+//   copies (load_rows_async for the padded row-major layout that ldmatrix
+//   reads, load_tile_b128 for the 128-byte-swizzled layout that wgmma
+//   reads); the products run on tensor cores (ptx.cuh).
 //
 // Conventions of the reference (src/repro/kernels/ref.py): a masked score is
 // NEG_INF = -1e30 (not -inf), p is zeroed under the mask, and the final l is
@@ -17,6 +23,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ptx.cuh"
+
 namespace attn {
 
 constexpr int NT = 128;           // threads per block (4 warps)
@@ -24,10 +32,6 @@ constexpr int BK = 32;            // keys per tile: one key per lane
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_SMEM = 232448;  // opt-in shared memory per block on sm_90
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -72,10 +76,10 @@ struct Smem {
 // shared tile with leading dimension `ld`; rows n..BK-1 become 0.  Each
 // thread issues all of its 16-byte loads before its first shared store, so
 // they are in flight together (the wrapper checks the 16-byte alignment).
-template <int D, typename T>
-__device__ void load_rows(float* dst, int ld, const T* __restrict__ src,
+template <int D>
+__device__ void load_rows(float* dst, int ld, const float* __restrict__ src,
                           long long row_stride, int n) {
-  constexpr int V = 16 / sizeof(T);              // elements per load
+  constexpr int V = 4;                           // floats per load
   constexpr int PER_ROW = D / V;
   constexpr int TOTAL = BK * PER_ROW;
   constexpr int ITERS = (TOTAL + NT - 1) / NT;
@@ -94,9 +98,9 @@ __device__ void load_rows(float* dst, int ld, const T* __restrict__ src,
     const int i = threadIdx.x + it * NT;
     if (i < TOTAL) {
       const int j = i / PER_ROW, c = (i % PER_ROW) * V;
-      const T* vals = reinterpret_cast<const T*>(&buf[it]);
+      const float* vals = reinterpret_cast<const float*>(&buf[it]);
 #pragma unroll
-      for (int e = 0; e < V; ++e) dst[j * ld + c + e] = to_f(vals[e]);
+      for (int e = 0; e < V; ++e) dst[j * ld + c + e] = vals[e];
     }
   }
 }
@@ -166,11 +170,70 @@ __device__ void attend_tile(const Smem<D>& sm, int rows, long long k0,
 
 // out[r, c] = acc[r, c] / max(l[r], 1e-30), row r written at out + r * ld
 // for r < n.
-template <int D, typename T>
-__device__ void store_rows(const Smem<D>& sm, T* out, long long ld, int n) {
+template <int D>
+__device__ void store_rows(const Smem<D>& sm, float* out, long long ld,
+                           int n) {
   for (int i = threadIdx.x; i < n * D; i += NT) {
     const int r = i / D, c = i % D;
-    out[r * ld + c] = from_f<T>(sm.acc[i] / fmaxf(sm.l[r], 1e-30f));
+    out[r * ld + c] = sm.acc[i] / fmaxf(sm.l[r], 1e-30f);
+  }
+}
+
+// ---- bf16 tiles for the tensor cores ---------------------------------------
+
+// Copy `n` <= ROWS rows of D bf16 values, `row_stride` elements apart, into
+// a row-major shared tile of pitch P elements; rows n..ROWS-1 become 0.
+// Asynchronous: the caller commits the group and waits for it.
+template <int ROWS, int D, int P>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long row_stride, int n) {
+  constexpr int PER_ROW = D / 8;                  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NT) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
+    const bool ok = r < n;
+    ptx::cp_async16(dst + r * P + c, ok ? src + r * row_stride + c : src, ok);
+  }
+}
+
+// The 128-byte-swizzled K-major layout that wgmma reads: the columns in
+// blocks of 64 (128 bytes a row), each block ROWS x 128 bytes; element
+// (r, c) of a block at byte r * 128 + (((c / 8) ^ (r % 8)) * 16) + (c % 8) * 2.
+// The same bytes read as an MN-major operand (rows along K) serve PV.
+template <int ROWS>
+__device__ __forceinline__ char* b128_chunk(__nv_bfloat16* base, int r,
+                                            int chunk) {
+  return reinterpret_cast<char*>(base) + (chunk >> 3) * (ROWS * 128) +
+         r * 128 + (((chunk & 7) ^ (r & 7)) << 4);
+}
+
+// Copy `n` <= ROWS rows of D bf16 values into the swizzled layout above;
+// rows n..ROWS-1 become 0.  Asynchronous, like load_rows_async; the copies
+// are shared by NTH threads, this one being number `tid`.
+template <int ROWS, int D, int NTH>
+__device__ __forceinline__ void load_tile_b128(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long row_stride, int n,
+                                               int tid) {
+  constexpr int PER_ROW = D / 8;
+  for (int i = tid; i < ROWS * PER_ROW; i += NTH) {
+    const int r = i / PER_ROW, c = i % PER_ROW;
+    const bool ok = r < n;
+    ptx::cp_async16(b128_chunk<ROWS>(dst, r, c),
+                    ok ? src + r * row_stride + c * 8 : src, ok);
+  }
+}
+
+// Zero columns D..DP-1 of a swizzled tile (head dims below a multiple of
+// 64 are padded with zeros, which add nothing to QK^T and give unused
+// columns of PV).  Plain stores: fence before wgmma reads them.
+template <int ROWS, int D, int DP, int NTH>
+__device__ __forceinline__ void zero_pad_b128(__nv_bfloat16* dst) {
+  constexpr int PAD = (DP - D) / 8;
+  for (int i = threadIdx.x; i < ROWS * PAD; i += NTH) {
+    const int r = i / PAD, c = D / 8 + i % PAD;
+    *reinterpret_cast<uint4*>(b128_chunk<ROWS>(dst, r, c)) =
+        make_uint4(0u, 0u, 0u, 0u);
   }
 }
 

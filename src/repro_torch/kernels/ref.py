@@ -160,6 +160,50 @@ def decode_attention_naive(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, 1, hq, d).to(q.dtype)
 
 
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                           window: int | None = None,
+                           n_splits: int | None = None) -> torch.Tensor:
+    """Flash-decoding, the algorithm of the CUDA decode kernels: fp32
+    partials (m, l, acc) of every split of each sequence's valid range
+    (``decode_attention.split_plan`` / ``split_range``), then
+    ``decode_combine``.  Semantics of ``decode_attention_naive``."""
+    from .decode_attention import split_plan, split_range
+
+    b, _, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    ns = split_plan(b, hkv, s, window) if n_splits is None else n_splits
+    scale = 1.0 / math.sqrt(d)
+    qg = _gqa_expand(q, hkv)[:, 0].float()               # (b,hkv,g,d)
+    acc = torch.zeros((b, hq, ns, d), device=q.device)
+    ml = torch.zeros((b, hq, ns, 2), device=q.device)
+    ml[..., 0] = NEG_INF                                 # empty split
+    for bi, length in enumerate(torch.as_tensor(lengths).tolist()):
+        for si in range(ns):
+            a, e = split_range(length, s, window, ns, si)
+            if e <= a:
+                continue
+            k = k_cache[bi, a:e].float()                 # (n,hkv,d)
+            sc = torch.einsum("hgd,khd->hgk", qg[bi], k) * scale
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            o = torch.einsum("hgk,khd->hgd", p, v_cache[bi, a:e].float())
+            acc[bi, :, si] = o.reshape(hq, d)
+            ml[bi, :, si, 0] = m.reshape(hq)
+            ml[bi, :, si, 1] = p.sum(-1).reshape(hq)
+    return decode_combine(acc, ml)[:, None].to(q.dtype)
+
+
+def decode_combine(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+    """Merge split partials: acc (b, hq, ns, d), ml (b, hq, ns, 2) → (b, hq,
+    d).  out = Σ e^(m_s - M) acc_s / max(Σ e^(m_s - M) l_s, 1e-30), so a row
+    whose every split is empty is 0."""
+    m, l = ml[..., 0], ml[..., 1]
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    den = (w * l).sum(-1).clamp_min(1e-30)
+    return (w[..., None] * acc).sum(-2) / den[..., None]
+
+
 # --------------------------------------------------------------------------
 # Mamba-2 SSD — naive recurrence oracle and the chunked (SSD) algorithm
 # --------------------------------------------------------------------------
