@@ -10,14 +10,16 @@ each of which exits non-zero when it fails:
 1. the card (``nvidia-smi`` name and power limit); the three kernels are
    built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
    parallel), and ptxas's registers and spill bytes are logged per
-   instantiation (a bf16 tensor-core instantiation that spills fails);
+   instantiation (a tensor-core instantiation that spills fails: bf16
+   attention, the TF32 SSD pass);
 2. each CUDA kernel against its plain PyTorch version on the card: the shape
    lists of ``tests/test_kernels.py`` (attention in fp32 and bf16 at its
    ``TOL``, the SSD pass and the whole scan at its atol 1e-4), then the
    serving paths' shapes (gemma-2b attention: head_dim 256, MQA, ragged,
    windowed, prompts of 441 and 39 tokens, decode lengths 0/1/32/1024;
    hymba-1.5b attention: 25 heads over 5, head_dim 64, window 1024, in bf16
-   and fp32; mamba2-780m's and hymba-1.5b's SSD at chunk 128 and 39);
+   and fp32; mamba2-780m's and hymba-1.5b's SSD at chunk 128 and 39, and a
+   strong-decay case whose log-decay cumsum falls below -100 in a chunk);
 3. three serving paths at full width, each a ``ServingEngine(max_batch=4,
    max_len=1024)`` on seeded random bf16 weights, every kernel's launch
    counter set to 0 just before the run and read just after:
@@ -26,13 +28,14 @@ each of which exits non-zero when it fails:
      window over decode steps (device-busy share);
    - mamba2-780m, all 48 layers, 8 requests: the SSD kernel and no
      attention kernel, then prefill-then-decode against the full forward
-     and a profiler window;
-   - hymba-1.5b, all 32 layers, 4 requests: all three kernels, and a
-     profiler window;
+     and profiler windows over decode steps and over one prefill;
+   - hymba-1.5b, all 32 layers, 4 requests: all three kernels, and the
+     two profiler windows;
 4. times at the serving shapes: kernel, plain version, one PyTorch library
    call where one computes the same function (``scaled_dot_product_attention``
    for attention, a yardstick the port never calls; none for the SSD pass),
-   their ratio and the card's bound; engine tokens/s, prefill and
+   their ratio and the card's bound (for the SSD pass at every
+   ``SSD_PREFILL`` shape); engine tokens/s, prefill and
    decode-step ms.  Kernel times are device times: the timed call waits in
    the stream behind a sleep kernel, so the host's enqueue is not in them
    (the attention lines also give the time with it).
@@ -108,11 +111,15 @@ DECODE_LENS = [([544, 400, 256, 96], None), ([1024, 700, 33, 1], None),
 # d_state 128) and hymba-1.5b (50 heads, d_state 16)
 SSD_PREFILL = [(1, 512, 48, 64, 128, 128), (1, 39, 48, 64, 128, 128),
                (1, 512, 50, 64, 16, 128), (1, 39, 50, 64, 16, 128)]
+# strong decay: mamba2 widths with A scaled by 20, so that the log-decay
+# cumsum falls below -100 inside a chunk and exp(dacs_i - dacs_j) overflows
+# for j > i (the kernel selects before the exp)
+STRONG_DECAY, STRONG_DECAY_A = (1, 256, 48, 64, 128, 128), 20.0
 MAX_BATCH, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 1024, 8, 32
 HYBRID_REQUESTS = 4
-# published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 tensor
-# cores, fp32 outside the tensor cores, memory
-PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 and TF32
+# tensor cores, memory
+PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 989e12, 495e12, 3.35e12
 # each kernel's wrapper module, whose ``launches`` counts its calls that
 # launched the kernel (a decode-attention call is two launches: split and
 # combine)
@@ -165,24 +172,25 @@ def decode_case(b, s, hq, hkv, d, dtype, lens, seed):
     return (q, kc, vc), torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 
-def ssd_case(b, t, nh, hd, n, seed):
-    """(x, dt, A, B, C, D) drawn like tests/test_kernels.py::_mk_ssd."""
+def ssd_case(b, t, nh, hd, n, seed, a_scale=1.0):
+    """(x, dt, A, B, C, D) drawn like tests/test_kernels.py::_mk_ssd, A
+    multiplied by ``a_scale``."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     return (rn(b, t, nh, hd) * 0.5,
             torch.nn.functional.softplus(rn(b, t, nh)) * 0.1,
-            -torch.exp(rn(nh)), rn(b, t, n) * 0.3, rn(b, t, n) * 0.3,
-            torch.full((nh,), 0.1, device="cuda"))
+            -torch.exp(rn(nh)) * a_scale, rn(b, t, n) * 0.3,
+            rn(b, t, n) * 0.3, torch.full((nh,), 0.1, device="cuda"))
 
 
-def check_ssd(shape, seed) -> float:
+def check_ssd(shape, seed, a_scale=1.0) -> float:
     """The SSD kernel against its plain version, and the whole scan around
     it against ``ref.ssd_chunked`` with and without an incoming state, at
     atol 1e-4; returns the kernel's largest error."""
     b, t, nh, hd, n, chunk = shape
-    x, dt, A, B, C, D = ssd_case(b, t, nh, hd, n, seed)
+    x, dt, A, B, C, D = ssd_case(b, t, nh, hd, n, seed, a_scale)
     ops_ = ssd_scan.chunk_operands(x, dt, A, B, C, chunk)
     got = ssd_scan.ssd_intra_chunk(*ops_, nh=nh, hd=hd)
     want = ref.ssd_intra_chunk(*ops_, nh=nh, hd=hd)
@@ -300,6 +308,14 @@ def check_kernels() -> dict:
         err = check_ssd(shape, 700 + i)
         log(f"  ssd     {shape}: max|err| {err:.3e}")
         worst["ssd_intra_chunk"] = max(worst["ssd_intra_chunk"], err)
+    b, t, nh, hd, n, chunk = STRONG_DECAY
+    x, dt, A = ssd_case(b, t, nh, hd, n, 750, STRONG_DECAY_A)[:3]
+    low = float(torch.cumsum(dt.reshape(b, -1, chunk, nh) * A, 2).min())
+    if low >= -100:
+        raise AssertionError(f"strong-decay case reaches only {low:.1f}")
+    err = check_ssd(STRONG_DECAY, 750, STRONG_DECAY_A)
+    log(f"  ssd     {STRONG_DECAY} strong decay (A x {STRONG_DECAY_A}, "
+        f"log-decay down to {low:.1f}): max|err| {err:.3e}")
     torch.cuda.synchronize()
     return worst
 
@@ -399,43 +415,60 @@ OUR_KERNELS = ("flash_bf16", "flash_f32", "decode_split", "decode_combine",
                "ssd_intra_chunk_kernel")
 
 
-def decode_breakdown(model, params, prompts, steps: int = 8) -> str:
-    """Where a decode step's time goes: ``steps`` steps of an engine whose
-    four slots are full, under torch.profiler; the kernels' device time
-    against the host clock."""
+def _profiled(fn, reps: int, what: str) -> str:
+    """``fn`` run ``reps`` times under torch.profiler: the kernels' device
+    time per run against the host clock, the hand-written kernels' share
+    and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dur = (e.time_range.end - e.time_range.start) / 1e3 / reps
+            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+    if not by_name:
+        return (f"{what} {wall_ms:.3f} ms on the host clock; device time not "
+                "measured (the profiler saw no kernels)")
+    device_ms = sum(by_name.values())
+    ours_ms = sum(v for k, v in by_name.items()
+                  if any(o in k for o in OUR_KERNELS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return (f"{what} {wall_ms:.3f} ms on the host clock, kernels "
+            f"{device_ms:.3f} ms on the device (busy {device_ms / wall_ms:.1%}"
+            f", idle {1 - device_ms / wall_ms:.1%}), {len(by_name)} kernel "
+            f"names, hand-written kernels {ours_ms:.3f} ms; top kernels: "
+            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+
+
+def decode_breakdown(model, params, prompts, steps: int = 8) -> str:
+    """Where a decode step's time goes: ``steps`` steps of an engine whose
+    four slots are full."""
     eng = ServingEngine(model, params, max_batch=MAX_BATCH, max_len=MAX_LEN)
     for p in prompts[:MAX_BATCH]:
         eng.submit(p, max_new_tokens=MAX_NEW)
     eng.step()                                   # admit all four, warm up
     eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dur = (e.time_range.end - e.time_range.start) / 1e3 / steps
-            by_name[e.name] = by_name.get(e.name, 0.0) + dur
-    if not by_name:
-        return (f"decode step {wall_ms:.3f} ms on the host clock; device "
-                "time not measured (the profiler saw no kernels)")
-    device_ms = sum(by_name.values())
-    ours_ms = sum(v for k, v in by_name.items()
-                  if any(o in k for o in OUR_KERNELS))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return (f"decode step {wall_ms:.3f} ms on the host clock, kernels "
-            f"{device_ms:.3f} ms on the device (busy {device_ms / wall_ms:.1%}"
-            f", idle {1 - device_ms / wall_ms:.1%}), {len(by_name)} kernel "
-            f"names, hand-written kernels {ours_ms:.3f} ms; top kernels: "
-            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    return _profiled(eng.step, steps, "decode step")
+
+
+def prefill_breakdown(model, params, prompt, reps: int = 2) -> str:
+    """Where a prefill's time goes: ``model.apply_prefill`` of one prompt,
+    as the engine's admit calls it, after a warm-up call."""
+    batch = {"tokens": torch.as_tensor(prompt[None, :], device="cuda"),
+             "lengths": torch.tensor([len(prompt)], dtype=torch.int32,
+                                     device="cuda")}
+    model.apply_prefill(params, batch)
+    return _profiled(lambda: model.apply_prefill(params, batch), reps,
+                     f"prefill of {len(prompt)} tokens")
 
 
 # a sleep kernel this long (about a millisecond) keeps the device busy while
@@ -542,9 +575,11 @@ def time_decode(lens, win, flush, heads=(HQ, HKV, HD)) -> dict:
 def time_ssd(shape) -> dict:
     """The SSD pass at a serving shape.  Its least work: scores C.B^T once
     per chunk (2 c^2 n), y_diag over the causal pairs only
-    (2 nh hd c(c+1)/2) and the states (2 nh c n hd), all fp32, so the
-    operations' bound is at the fp32 peak outside the tensor cores; bytes are
-    each fp32 input read once and each output written once."""
+    (2 nh hd c(c+1)/2) and the states (2 nh c n hd).  The kernel runs these
+    fp32 products on the TF32 tensor cores as three TF32 products each
+    (3xTF32, which keeps fp32 accuracy), so the operations' bound is 3x the
+    FLOPs at the TF32 peak; bytes are each fp32 input read once and each
+    output written once."""
     b, t, nh, hd, n, chunk = shape
     ops_ = ssd_scan.chunk_operands(*ssd_case(b, t, nh, hd, n, 800)[:5],
                                    chunk)
@@ -554,7 +589,7 @@ def time_ssd(shape) -> dict:
                             + 2 * nh * c * n * hd))
     out = b * nc * (c * nh * hd + nh * n * hd)
     nbytes = 4.0 * (sum(o.numel() for o in ops_) + out)
-    bound, by = _bound(flops, nbytes, PEAK_FP32_FLOPS)
+    bound, by = _bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
     return dict(
         ms=time_ms(lambda: ssd_scan.ssd_intra_chunk(*ops_, nh=nh, hd=hd),
                    None),
@@ -598,8 +633,10 @@ def serve(aid: str, n_requests: int, kernels, smi: str):
 
 
 # the tensor-core instantiations, which must not spill (their accumulators
-# live in registers)
-TENSOR_CORE_KERNELS = ("flash_bf16", "decode_split_bf16")
+# live in registers): bf16 attention, and every instantiation of the SSD
+# pass (3xTF32)
+TENSOR_CORE_KERNELS = ("flash_bf16", "decode_split_bf16",
+                       "ssd_intra_chunk_kernel")
 
 
 def log_ptxas(kname: str, report: str) -> None:
@@ -671,6 +708,8 @@ def main() -> int:
         f"{PTD_LIMIT[cfg.name]}")
     log(f"mamba2-780m where the time goes: "
         f"{decode_breakdown(model, params, prompts)} [{smi}]")
+    log(f"mamba2-780m prefill: "
+        f"{prefill_breakdown(model, params, prompts[0])} [{smi}]")
     launches["ssd_intra_chunk"] = run["launches"]["ssd_intra_chunk"]
     del params, model, run
     torch.cuda.empty_cache()
@@ -679,6 +718,8 @@ def main() -> int:
         "hymba-1.5b", HYBRID_REQUESTS, tuple(COUNTERS), smi)
     log(f"hymba-1.5b where the time goes: "
         f"{decode_breakdown(model, params, prompts)} [{smi}]")
+    log(f"hymba-1.5b prefill: "
+        f"{prefill_breakdown(model, params, prompts[0])} [{smi}]")
     del params, model, run
     torch.cuda.empty_cache()
 
@@ -710,13 +751,13 @@ def main() -> int:
             f"{r['call_ms']:.4f} ms, sdpa {r['library_call_ms']:.4f} ms "
             f"[{smi}]")
         records.setdefault("decode_attention", r)
-    for shape in SSD_PREFILL[::2]:
+    for shape in SSD_PREFILL:
         r = time_ssd(shape)
         log(f"time ssd    {shape}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library none, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}: "
-            f"{r['flops'] / 1e9:.3f} GFLOP fp32, {r['bytes'] / 1e6:.2f} MB) "
-            f"[{smi}]")
+            f"{r['flops'] / 1e9:.3f} GFLOP fp32 as 3xTF32, "
+            f"{r['bytes'] / 1e6:.2f} MB) [{smi}]")
         records.setdefault("ssd_intra_chunk", r)
     log(f"kernels: {list(_build.KERNELS)}")
 

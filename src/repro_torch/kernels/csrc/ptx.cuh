@@ -1,7 +1,7 @@
-// PTX primitives of the bf16 tensor-core attention routines (sm_90a):
-// asynchronous 16-byte copies (cp.async), ldmatrix, the warp-level
-// mma.sync m16n8k16, and the warpgroup-level wgmma with its shared-memory
-// matrix descriptor.  Register operands of wgmma are listed one by one,
+// PTX primitives of the tensor-core kernels (sm_90a): asynchronous copies
+// (cp.async), ldmatrix, the warp-level mma.sync (m16n8k16 in bf16, m16n8k8
+// in TF32 with the 3xTF32 split that keeps fp32 accuracy), and the
+// warpgroup-level wgmma with its shared-memory matrix descriptor.  Register operands of wgmma are listed one by one,
 // as inline PTX needs one operand per register.
 
 #pragma once
@@ -22,6 +22,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+// 4 bytes, for rows that do not start on 16 bytes.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -72,6 +80,44 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = big + small to about 22 bits, both TF32 and rounded to nearest with
+// ties away from zero (cvt.rna.tf32.f32): big = tf32(x), small = tf32(x -
+// big), x - big being exact in fp32.  The rounding is an integer add at bit
+// 13: the tensor core reads bits 31..13 of a TF32 operand, so big and small
+// go to the mma with their low bits as the add left them, and only the big
+// that x - big needs is masked.  cvt.rna compiles to the same add plus an
+// inf/NaN guard and a mask (4 instructions where this takes 2); on finite x
+// both give the same TF32 values.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) + 0x1000u;
+  small = __float_as_uint(x - __uint_as_float(big & 0xFFFFE000u)) + 0x1000u;
+}
+
+// d (16x8 fp32) += a (16x8 tf32, row) * b (8x8 tf32, col).  Fragments, with
+// g = lane/4, t = lane%4: a = {(g, t), (g+8, t), (g, t+4), (g+8, t+4)},
+// b = {(t, g), (t+4, g)}, d = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b in 3xTF32 from split operands: the two cross terms first, then
+// big * big (small * small, below 2^-22 relative, is left out).
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32_1688(d, a_small, b_big);
+  mma_tf32_1688(d, a_big, b_small);
+  mma_tf32_1688(d, a_big, b_big);
 }
 
 // 2^x on the special-function unit (relative error about 2^-22; 0 for very

@@ -7,7 +7,10 @@ Two tiers per op, as in the JAX package:
                     numerically equivalent to naive.
 
 ``ssd_intra_chunk`` is the plain version of the SSD intra-chunk kernel alone
-(the body of the Pallas kernel in ``repro/kernels/ssd_scan.py``).
+(the body of the Pallas kernel in ``repro/kernels/ssd_scan.py``);
+``ssd_intra_chunk_tf32`` models that kernel's arithmetic (3xTF32 products
+over its tiles), and ``decode_attention_split`` the decode kernels' split
+algorithm.
 
 ``ops`` sends CPU tensors here; CUDA tensors go to the hand-written kernels,
 which ``chip_smoke.py`` holds against these functions on the card.
@@ -319,6 +322,79 @@ def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
     decay = torch.exp(dacs[:, :, -1:, :] - dacs)         # (b,nc,c,nh)
     states = torch.einsum("bzcn,bzch,bzchp->bzhnp", B, decay, xh)
     return y.reshape(b, nc, c, nh * hd), states
+
+
+# the CUDA kernel's tiles: 64 query rows (y) or state rows, 32 keys
+SSD_ROWS, SSD_KEYS = 64, 32
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: the low 13 bits become 0."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = big + small to about 22 bits: big = tf32(x), small = tf32(x -
+    big), the operand split of 3xTF32."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """a @ b on TF32 tensor cores with fp32 sums: one product of the rounded
+    operands, or with ``split`` small·big + big·small + big·big (the
+    kernel's order; small·small is left out).  Each product of two TF32
+    values is exact in fp32."""
+    if not split:
+        return tf32_round(a) @ tf32_round(b)
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def ssd_intra_chunk_tf32(xdt: torch.Tensor, dacs: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, *, nh: int,
+                         hd: int, split: bool = True
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of the CUDA SSD kernel (``csrc/ssd_intra_chunk.cu``):
+    the function of ``ssd_intra_chunk`` with its three products in TF32
+    and, with ``split`` (the kernel), the 3xTF32 split of every operand,
+    over the kernel's tiles.  Per 32-key tile: scores C·Bᵀ for a 64-row
+    tile, the masked decay applied to them in fp32 (the select before the
+    exp), then y += (scores ⊙ L_h)·x̄_h; states += (B ⊙ decay_h)ᵀ·x̄_h
+    with the decay to the chunk's end in fp32.  ``split=False`` is a single
+    TF32 product, which the kernel does not run: the tests show that it
+    misses the fp32 tolerance."""
+    b, nc, c, _ = xdt.shape
+    n = B.shape[-1]
+    xh = xdt.float().reshape(b, nc, c, nh, hd).permute(0, 1, 3, 2, 4)
+    dh = dacs.float().transpose(2, 3)                    # (b,nc,nh,c)
+    B, C = B.float(), C.float()
+    y = torch.zeros((b, nc, nh, c, hd), device=xdt.device)
+    for i0 in range(0, c, SSD_ROWS):
+        i1 = min(i0 + SSD_ROWS, c)
+        rows = torch.arange(i0, i1, device=xdt.device)
+        for j0 in range(0, i1, SSD_KEYS):
+            j1 = min(j0 + SSD_KEYS, i1)
+            keys = torch.arange(j0, j1, device=xdt.device)
+            s = _mm_tf32(C[:, :, i0:i1], B[:, :, j0:j1].transpose(2, 3),
+                         split)                           # (b,nc,ri,kj)
+            causal = keys[None, :] <= rows[:, None]
+            L = torch.exp(torch.where(
+                causal, dh[..., i0:i1, None] - dh[..., None, j0:j1],
+                -torch.inf))                              # (b,nc,nh,ri,kj)
+            y[..., i0:i1, :] += _mm_tf32(s[:, :, None] * L,
+                                         xh[..., j0:j1, :], split)
+    decay = torch.exp(dh[..., -1:] - dh)                 # (b,nc,nh,c)
+    states = torch.zeros((b, nc, nh, n, hd), device=xdt.device)
+    for j0 in range(0, c, SSD_KEYS):
+        j1 = min(j0 + SSD_KEYS, c)
+        bd = B[:, :, None, j0:j1, :] * decay[..., j0:j1, None]
+        states += _mm_tf32(bd.transpose(3, 4), xh[..., j0:j1, :], split)
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, nc, c, nh * hd)
+    return y, states
 
 
 def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,

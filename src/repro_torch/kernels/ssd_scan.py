@@ -10,8 +10,10 @@ stay in XLA in the JAX package.
 
 ``ssd_intra_chunk`` takes CUDA tensors only: the kernel launches on the
 current stream, without a synchronisation, into outputs allocated here.  Its
-plain version is ``ref.ssd_intra_chunk``.  ``launches`` counts the kernel
-launches of this process.
+plain version is ``ref.ssd_intra_chunk``; ``ref.ssd_intra_chunk_tf32``
+models the kernel's arithmetic (its fp32 products on TF32 tensor cores, each
+operand split in two).  ``launches`` counts the kernel launches of this
+process.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from .ref import _pad_chunks
 launches = 0
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
-# the kernel keeps a (32 x chunk) score strip and (32 x d_state) C rows in
-# shared memory; these bounds keep a block within the card's 227 KB
+# a y block keeps 64 rows of C and a ring of B tiles (d_state wide), and
+# dacs for the chunk, in shared memory; these bounds keep a block within the
+# card's 227 KB
 MAX_CHUNK, MAX_STATE = 512, 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
