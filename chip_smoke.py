@@ -20,10 +20,25 @@ each of which exits non-zero when it fails:
    hymba-1.5b attention: 25 heads over 5, head_dim 64, window 1024, in bf16
    and fp32; mamba2-780m's and hymba-1.5b's SSD at chunk 128 and 39, and a
    strong-decay case whose log-decay cumsum falls below -100 in a chunk);
-3. three serving paths at full width, each a ``ServingEngine(max_batch=4,
+3. calibrate and plan, the paper's analyzer loop: ``Profiler.profile_kernels``
+   on ``cuda:0`` sweeps the three kernels through ``ops`` in fp32 at the JAX
+   package's ``DEFAULT_KERNEL_SHAPES`` and the serving shapes timed in 5,
+   keyed to the planner's H100 resource (``gpu_node("h100")``), and each
+   kernel's counter must rise by exactly (warmup + repeats) x shapes; the
+   fitted ``LearnedCostModel`` goes through a ``CalibrationStore`` and back
+   unchanged; the ``CalibratedCostProvider`` must price gemma-2b's
+   attention layers from the card's entry, not the datasheet, and backs a
+   ``PlanCache`` over ``HiDPPlanner``.  One line per sample (key, kind,
+   shape, ms, fitted rate) and, for the serving shapes, the sweep's time
+   beside the queued device time of the same call;
+4. three serving paths at full width, each a ``ServingEngine(max_batch=4,
    max_len=1024)`` on seeded random bf16 weights, every kernel's launch
    counter set to 0 just before the run and read just after:
-   - gemma-2b, all 18 layers, 8 requests: flash and decode attention, then
+   - gemma-2b, all 18 layers, 8 requests: flash and decode attention; the
+     same requests again through the plan cache (its tenant
+     ``block_costs`` of a 4 x 1024 decode step) and a ``FeedbackLoop``
+     (1 miss and 7 hits, plus a re-plan per drift event; every decode step
+     after the first observed; the same greedy tokens), then
      prefill-then-decode logits against the full forward and a profiler
      window over decode steps (device-busy share);
    - mamba2-780m, all 48 layers, 8 requests: the SSD kernel and no
@@ -31,7 +46,7 @@ each of which exits non-zero when it fails:
      and profiler windows over decode steps and over one prefill;
    - hymba-1.5b, all 32 layers, 4 requests: all three kernels, and the
      two profiler windows;
-4. times at the serving shapes: kernel, plain version, one PyTorch library
+5. times at the serving shapes: kernel, plain version, one PyTorch library
    call where one computes the same function (``scaled_dot_product_attention``
    for attention, a yardstick the port never calls; none for the SSD pass),
    their ratio and the card's bound (for the SSD pass at every
@@ -51,6 +66,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -60,11 +76,19 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build, ref, ssd_scan  # noqa: E402
+from repro_torch.core import (ANALYTIC, Cluster, HiDPPlanner,  # noqa: E402
+                              PlannerConfig, gpu_node, node_as_resource,
+                              plan_to_dict, processors_as_resources)
+from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import ShapeConfig, build_model  # noqa: E402
+from repro_torch.profiling import (DEFAULT_KERNEL_SHAPES,  # noqa: E402
+                                   CalibratedCostProvider, CalibrationStore,
+                                   FeedbackLoop, LearnedCostModel, Profiler)
+from repro_torch.profiling.profiler import kernel_call  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.plan_cache import PlanCache  # noqa: E402
 
 # tests/test_kernels.py's lists (that module imports jax); a CPU test holds
 # these copies equal to it.
@@ -125,6 +149,18 @@ PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 989e12, 495e12, 3.35e12
 # combine)
 COUNTERS = {"flash_attention": fa, "decode_attention": da,
             "ssd_intra_chunk": ssd_scan}
+# the kernel kind each counter's calls are swept under by
+# ``Profiler.profile_kernels``
+SWEEP_KINDS = {"attn": "flash_attention", "decode": "decode_attention",
+               "ssd": "ssd_intra_chunk"}
+# the calibration sweep: the JAX package's DEFAULT_KERNEL_SHAPES plus the
+# serving shapes timed below, in the sweep's layouts ((B, T, H, D) with one
+# head count for attention, so gemma-2b's 8 query heads at head_dim 256;
+# (B, T, NH, HD, N) for the SSD scan, mamba2-780m's widths over a 512-token
+# prompt)
+SWEEP_SERVING = {"attn": ((1, 512, HQ, HD),),
+                 "decode": ((MAX_BATCH, MAX_LEN, HQ, HD),),
+                 "ssd": ((1, 512, 48, 64, 128),)}
 
 
 def log(msg: str) -> None:
@@ -320,10 +356,12 @@ def check_kernels() -> dict:
     return worst
 
 
-def drive_main_path(model, params, prompts) -> dict:
-    """One engine run over ``prompts``; every count is reset just before and
+def drive_main_path(model, params, prompts, **engine_kw) -> dict:
+    """One engine run over ``prompts`` (``engine_kw`` reaches the engine:
+    a plan cache, a feedback loop); every count is reset just before and
     read just after."""
-    eng = ServingEngine(model, params, max_batch=MAX_BATCH, max_len=MAX_LEN)
+    eng = ServingEngine(model, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                        **engine_kw)
     rids = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
     for mod in COUNTERS.values():
         mod.launches = 0
@@ -599,6 +637,144 @@ def time_ssd(shape) -> dict:
         bytes=nbytes)
 
 
+def calibrate_and_plan(smi: str) -> dict:
+    """The paper's analyzer loop on the card, feeding the planner: the
+    kernel sweep (``Profiler.profile_kernels`` on ``cuda:0``, keyed to the
+    H100 node's GPU resource) launches each hand-written kernel exactly
+    (warmup + repeats) x shapes times; the fitted ``LearnedCostModel``
+    goes through a ``CalibrationStore`` and back unchanged; the calibrated
+    provider prices gemma-2b's attention layers from the card's entry on
+    both planner tiers.  Returns what the planned serving run needs."""
+    shapes = {k: DEFAULT_KERNEL_SHAPES[k] + SWEEP_SERVING[k]
+              for k in DEFAULT_KERNEL_SHAPES}
+    node = gpu_node("h100")                    # the card as a node of one GPU
+    cluster = Cluster((node,))
+    gpu = processors_as_resources(node)[0]
+    key = gpu.profile_key or gpu.name          # what the provider looks up
+    prof = Profiler(warmup=2, repeats=5, trim=1)
+    for mod in COUNTERS.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    samples = prof.profile_kernels(device="cuda:0", shapes=shapes, key=key)
+    sweep_s = time.perf_counter() - t0
+    launches = {kind: COUNTERS[k].launches for kind, k in SWEEP_KINDS.items()}
+    for kind, count in launches.items():
+        want = (prof.warmup + prof.repeats) * len(shapes[kind])
+        if count != want:
+            raise AssertionError(f"the {kind} sweep launched "
+                                 f"{SWEEP_KINDS[kind]} {count} times, "
+                                 f"expected {want}")
+    log(f"calibration sweep on cuda:0 keyed {key!r}: {len(samples)} samples "
+        f"in {sweep_s:.3f} s; kernel calls {launches} = (warmup "
+        f"{prof.warmup} + repeats {prof.repeats}) x shapes per kind")
+
+    fitted = LearnedCostModel.fit(samples)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CalibrationStore(tmp)
+        version = store.save(cluster, fitted, note=f"chip_smoke [{smi}]")
+        loaded = store.load(cluster, version)
+    if loaded.to_json() != fitted.to_json():
+        raise AssertionError("the calibration read back from the store "
+                             "differs from the one saved")
+    log(f"calibration store: saved and reloaded version {version} under "
+        f"fingerprint {store.fingerprint(cluster)}, equal JSON")
+    order = [(kind, shape) for kind in shapes for shape in shapes[kind]]
+    for (kind, shape), s in zip(order, samples):
+        if s.kind != kind:
+            raise AssertionError(f"sample {s} out of the sweep's order")
+        log(f"  sample {s.key} {kind:6s} {'x'.join(map(str, shape)):17s}: "
+            f"{1e3 * s.latency_s:.4f} ms, {s.work / s.latency_s / 1e9:.4g} "
+            f"GFLOP/s; fitted rate {loaded.rate(key, kind) / 1e9:.4g} "
+            f"GFLOP/s [{smi}]")
+    for kind, e in sorted(loaded.entries.items()):
+        log(f"  fit {kind}: a {e.a:.4e} s/FLOP, b {e.b:.4e} s/byte, c "
+            f"{e.c:.4e} s, mape {e.mape:.3f} over {e.n} samples")
+    for kind, (shape,) in SWEEP_SERVING.items():
+        fn, _, _ = kernel_call(kind, shape, device=torch.device("cuda", 0),
+                               seed=prof.seed)
+        lat = samples[order.index((kind, shape))].latency_s
+        log(f"  {kind:6s} {'x'.join(map(str, shape))} fp32: sweep "
+            f"{1e3 * lat:.4f} ms (one call as its caller sees it); queued "
+            f"device time {time_ms(fn, None):.4f} ms; lone call "
+            f"{time_ms(fn, None, queued=False):.4f} ms [{smi}]")
+
+    provider = CalibratedCostProvider(loaded)
+    dag = build_model(get_config("gemma-2b")).block_costs(
+        ShapeConfig("serve", MAX_LEN, MAX_BATCH, "decode"))
+    attn = [b for b in dag.blocks if b.kind == "attn"]
+    if not attn or loaded.entry(key, "attn") is None:
+        raise AssertionError("no attention blocks, or no attn entry")
+    for r in (node_as_resource(node), gpu):
+        if provider.effective_rate(r, "attn") != loaded.rate(key, "attn"):
+            raise AssertionError(f"{r.name} is not priced at the card's rate")
+        for b in attn:
+            if provider.block_time(r, b) == ANALYTIC.compute_time(
+                    b.flops, r, b.kind):
+                raise AssertionError(f"{r.name} prices {b.name} from the "
+                                     "datasheet, not the card's entry")
+    per_layer = provider.block_time(gpu, attn[0])
+    log(f"calibrated provider: {len(attn)} attention layers of {dag.name} "
+        f"priced from ({key!r}, 'attn') on the node and GPU tiers, "
+        f"{1e3 * per_layer:.4g} ms a layer (datasheet "
+        f"{1e3 * ANALYTIC.compute_time(attn[0].flops, gpu):.4g} ms)")
+    datasheet = HiDPPlanner().plan(dag, cluster).predicted_latency
+    cache = PlanCache(HiDPPlanner(PlannerConfig(provider=provider)), cluster,
+                      version=version)
+    return dict(loaded=loaded, version=version, cache=cache, dag=dag,
+                datasheet=datasheet)
+
+
+def serve_planned(model, params, prompts, run, plan, smi: str) -> None:
+    """The counted run again, now with submits resolved through the
+    calibrated ``PlanCache`` and decode steps fed to a ``FeedbackLoop``: one
+    frontier pass on the first submit and a hit for every other (plus one
+    re-plan per drift event, if the loop reports one), every decode step
+    after the first observed, and the same greedy tokens as the run
+    without a cache (on one card the plan does not change the
+    computation)."""
+    cache = plan["cache"]
+    n = len(run["rids"])
+    fb = FeedbackLoop(plan["loaded"], calibration_version=plan["version"])
+    planned = drive_main_path(model, params, prompts[:n], plan_cache=cache,
+                              default_dag=plan["dag"], feedback=fb)
+    check_engine(planned, model.cfg, n, ("flash_attention",
+                                         "decode_attention"))
+    eng = planned["eng"]
+    if cache.hits != n - 1 or cache.misses != 1 + eng.replans:
+        raise AssertionError(f"plan cache: {cache.misses} misses and "
+                             f"{cache.hits} hits for {n} submits and "
+                             f"{eng.replans} re-plans")
+    if eng.replans != fb.replans:
+        raise AssertionError(f"{eng.replans} re-plans for {fb.replans} "
+                             "drift events")
+    if fb.observations != len(eng.decode_seconds) - 1:
+        raise AssertionError(f"the feedback loop observed {fb.observations} "
+                             f"of {len(eng.decode_seconds)} decode steps")
+    for a, b in zip(run["rids"], planned["rids"]):
+        if run["done"][a].generated != planned["done"][b].generated:
+            raise AssertionError(f"request {b} emitted other tokens with "
+                                 "the plan cache than without")
+    p = eng.plan
+    tokens = n * MAX_NEW
+    log(f"{model.cfg.name} planned run: {n} submits, plan cache "
+        f"{cache.misses} miss(es) and {cache.hits} hits, {eng.replans} "
+        f"re-plan(s) on drift, feedback observed {fb.observations} of "
+        f"{len(eng.decode_seconds)} decode steps, greedy tokens equal to "
+        f"the run without a cache; {tokens / planned['wall']:.1f} tok/s "
+        f"(without: {tokens / run['wall']:.1f}); plan {p.mode}-mode, "
+        f"local plan {plan_to_dict(p)['local_plans'][0]['mode']}-mode, "
+        f"predicted {1e3 * p.predicted_latency:.4f} ms a decode step "
+        f"(datasheet plan {1e3 * plan['datasheet']:.4f} ms), measured "
+        f"median {1e3 * statistics.median(eng.decode_seconds):.4f} ms "
+        f"[{smi}]")
+    stats = cache.stats()
+    log("plan cache stats: " + json.dumps(
+        {k: stats[k] for k in ("hits", "misses", "invalidations", "entries",
+                               "nbytes", "version", "hit_rate",
+                               "fingerprint")}))
+    log(f"launches in the planned run: {planned['launches']}")
+
+
 def serve(aid: str, n_requests: int, kernels, smi: str):
     """Seeded full-width bf16 weights for ``aid``, a warm-up engine run,
     then the counted run over ``n_requests`` prompts (numpy seed 0, 32..512
@@ -688,9 +864,13 @@ def main() -> int:
     # 2. kernels against their plain versions
     worst = check_kernels()
 
-    # 3. the serving paths at full width
+    # 3. calibrate and plan: the kernel sweep calibrates the planner
+    plan = calibrate_and_plan(smi)
+
+    # 4. the serving paths at full width; gemma-2b also through the plan
     cfg, model, params, prompts, run = serve(
         "gemma-2b", N_REQUESTS, ("flash_attention", "decode_attention"), smi)
+    serve_planned(model, params, prompts, run, plan, smi)
     err = check_prefill_then_decode(model, params, cfg, PTD_LIMIT[cfg.name])
     log(f"prefill-then-decode vs full forward (B=2, P=255): max|err| "
         f"{err:.3e} within {PTD_LIMIT[cfg.name]}")
@@ -723,7 +903,7 @@ def main() -> int:
     del params, model, run
     torch.cuda.empty_cache()
 
-    # 4. times at the main path's shapes
+    # 5. times at the main path's shapes
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = {}
     hymba_heads = HYMBA_ATTN[:3]

@@ -1,7 +1,27 @@
-"""The port's copies of the pure helpers from ``repro.core`` that the serving
-engine uses: the scheduler FSM states, the objective metric names and the
-workload fingerprint."""
+"""The port's copy of ``repro.core``, the paper's hardware-agnostic planner,
+as far as the serving and analyzer loop needs it: the cost model, block DAGs,
+objectives, fingerprints, the frontier DP at both tiers and the two-tier
+HiDP planner, plus the scheduler FSM states.  The baselines, simulator,
+edge-model zoo and cluster manager are not ported yet (``ROADMAP.md``)."""
 
-from .fingerprint import dag_fingerprint  # noqa: F401
-from .objective import METRICS  # noqa: F401
+from .cost_model import (ANALYTIC, AnalyticCostProvider,  # noqa: F401
+                         Cluster, CostProvider, Node, Processor, Resource,
+                         gpu_chip, gpu_node, node_as_resource,
+                         processors_as_resources, resolve_provider, tpu_chip,
+                         tpu_pod)
+from .dag import Block, DataPartition, ModelDAG, ModelPartition, chain  # noqa: F401
+from .objective import LATENCY, METRICS, Objective, resolve_objective  # noqa: F401
+from .pareto import ParetoFront, ParetoPoint  # noqa: F401
+from .fingerprint import (cluster_fingerprint, dag_fingerprint,  # noqa: F401
+                          membership_fingerprint)
+from .dp_partitioner import (partition, partition_data,  # noqa: F401
+                             partition_data_front, partition_front,
+                             partition_model, partition_model_front,
+                             predicted_energy)
+from .global_partitioner import (GlobalPlan, plan_global,  # noqa: F401
+                                 plan_global_front)
+from .local_partitioner import (LocalPlan, p1_plan, plan_local,  # noqa: F401
+                                plan_local_front)
+from .hidp import (HiDPPlan, HiDPPlanner, PlannerConfig, plan,  # noqa: F401
+                   plan_from_dict, plan_front, plan_to_dict, sub_dag_for)
 from .scheduler import State  # noqa: F401

@@ -1,1 +1,1 @@
-"""Serving engine of the port."""
+"""Serving engine of the port and its copy of the plan cache."""

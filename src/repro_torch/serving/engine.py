@@ -7,9 +7,11 @@ kernel), EXPLORE re-enters planning on drift or a membership epoch, EXECUTE
 runs one decode step over every slot (decode-attention kernel) and merges the
 emitted tokens per request.
 
-``plan_cache``, ``feedback`` and ``telemetry`` arrive as objects (the JAX
-package's ``PlanCache``, ``FeedbackLoop`` and ``TelemetryRecorder`` fit, they
-are pure Python); the engine never imports their classes.  The KV cache is
+``plan_cache``, ``feedback`` and ``telemetry`` arrive as objects, and the
+engine never imports their classes: the port's own ``PlanCache``
+(``repro_torch.serving.plan_cache``) and ``FeedbackLoop``
+(``repro_torch.profiling``) fit, and so do the JAX package's, which are pure
+Python, and its ``TelemetryRecorder``.  The KV cache is
 updated in place (the JAX engine donates it instead).
 """
 

@@ -13,9 +13,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import get_config as jget_config  # noqa: E402
-from repro.core.fingerprint import dag_fingerprint as jdag_fingerprint  # noqa: E402
+from repro.core.edge_models import battery_cluster, paper_cluster  # noqa: E402
+from repro.core.fingerprint import (  # noqa: E402
+    cluster_fingerprint as jcluster_fingerprint,
+    dag_fingerprint as jdag_fingerprint,
+    membership_fingerprint as jmembership_fingerprint)
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
-from repro_torch.core.fingerprint import dag_fingerprint  # noqa: E402
+from repro_torch.core.fingerprint import (cluster_fingerprint,  # noqa: E402
+                                          dag_fingerprint,
+                                          membership_fingerprint)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -31,9 +37,19 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
-print("LOADED", len([n for n in sys.modules if n.startswith("repro_torch")]))
+ours = sorted(n for n in sys.modules if n.startswith("repro_torch"))
+print("LOADED", len(ours))
 print("BAD", bad)
+print("NAMES", " ".join(ours))
 """
+
+# the analyzer, planner and plan cache the port copies from ``repro``
+PLANNER_MODULES = [f"repro_torch.core.{m}" for m in (
+    "cost_model", "dag", "dp_cache", "dp_partitioner", "fingerprint",
+    "global_partitioner", "hidp", "local_partitioner", "objective",
+    "pareto")] + [f"repro_torch.profiling.{m}" for m in (
+        "feedback", "learned", "profiler", "provider", "store")] + [
+    "repro_torch.serving.plan_cache"]
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -44,7 +60,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 20
+    assert int(out.stdout.split("LOADED")[1].split()[0]) >= 50
+    loaded = set(out.stdout.split("NAMES")[1].split())
+    assert set(PLANNER_MODULES) <= loaded, set(PLANNER_MODULES) - loaded
 
 
 def _needs_no_gpu():
@@ -93,3 +111,23 @@ def test_dag_fingerprint_equals_the_jax_digest():
     two = dataclasses.replace(dag, name="toy_b", blocks=dag.blocks[:-1])
     assert dag_fingerprint(two) == jdag_fingerprint(dataclasses.replace(two))
     assert dag_fingerprint(two) != ours
+
+
+def test_cluster_and_membership_fingerprints_equal_the_jax_digests():
+    """The keys CalibrationStore files under and PlanCache looks up by: the
+    same declared cluster, rebuilt field by field in the port, hashes alike
+    in both packages, whatever its availability mask."""
+    from test_torch_planner import jax_cluster, port_cluster
+    from repro_torch.core.cost_model import Cluster, gpu_node
+
+    h100 = jax_cluster(Cluster((gpu_node("a", chips=4), gpu_node("b"))))
+    for jcl in (paper_cluster(), battery_cluster(), h100):
+        seen = set()
+        for mask in ([True] * len(jcl.nodes),
+                     [i != 1 for i in range(len(jcl.nodes))]):
+            jc = jcl.with_availability(mask)
+            c = port_cluster(jc)
+            assert cluster_fingerprint(c) == jcluster_fingerprint(jc)
+            assert membership_fingerprint(c) == jmembership_fingerprint(jc)
+            seen.add(membership_fingerprint(c))
+        assert len(seen) == 2                 # a node away is another key

@@ -2,9 +2,10 @@
 engine (CPU), greedy-token parity with the JAX engine on the same weights,
 and the serving CLI.
 
-The JAX package's PlanCache, FeedbackLoop, LearnedCostModel and
-FleetController are pure Python; the tests hand them to the port's engine,
-which takes them as objects and never imports them.
+The engine takes its PlanCache, FeedbackLoop and FleetController as
+objects and never imports their classes: most tests hand it the JAX
+package's (pure Python), and two hand it the port's own PlanCache and
+FeedbackLoop.
 """
 
 import os
@@ -195,6 +196,75 @@ def test_engine_drift_triggers_exactly_one_cache_replan(small_lm):
     assert cache.invalidations == eng.replans
     assert cache.version == eng.replans
 
+
+
+def _port_toy_cache():
+    """``_toy_cache`` built from the port's own planner and plan cache, over
+    ``battery_cluster()`` rebuilt in the port; returns the port's cache and
+    tenant beside the JAX package's."""
+    from repro_torch.core import HiDPPlanner, Objective, PlannerConfig
+    from repro_torch.core.dag import Block, ModelDAG
+    from repro_torch.serving.plan_cache import PlanCache
+    from test_torch_planner import port_cluster, toy_dag
+
+    jcache, jdag = _toy_cache()
+    planner = HiDPPlanner(PlannerConfig(
+        objective=Objective("energy", radio_power=4.0)))
+    cache = PlanCache(planner, port_cluster(jcache.cluster))
+    return cache, toy_dag(Block, ModelDAG), jcache, jdag
+
+
+def test_engine_resolves_objectives_from_the_ports_plan_cache(small_lm):
+    """The port's engine with the port's PlanCache: one frontier pass on the
+    first submit, hits for every later objective, and the same plan the JAX
+    package's cache selects for the same tenant."""
+    from repro.core import plan_to_dict as jplan_to_dict
+    from repro_torch.core import Objective, plan_to_dict
+
+    cfg, model, params = small_lm
+    cache, dag, jcache, jdag = _port_toy_cache()
+    eng = _engine(model, params, max_batch=2, max_len=32, plan_cache=cache,
+                  default_dag=dag)
+    objectives = ("latency", "energy", "edp", "energy")
+    for i, obj in enumerate(objectives):
+        eng.submit(np.asarray([i + 1, 2], np.int32), max_new_tokens=2,
+                   objective=obj)
+    assert cache.misses == 1 and cache.hits == len(objectives) - 1
+    want = cache.front(dag).select(Objective("energy"))
+    assert eng.plan.global_plan.partition == want.global_plan.partition
+    got = plan_to_dict(eng.plan)
+    jwant = jplan_to_dict(jcache.get(jdag, objective="energy"))
+    for d in (got, jwant):
+        d.pop("planning_seconds")
+    assert got == jwant
+    done = eng.run_until_done()
+    assert len(done) == len(objectives)
+    assert cache.misses == 1                    # execution never re-plans
+
+
+def test_engine_drift_replans_once_through_the_ports_loop(small_lm):
+    """The port's FeedbackLoop wired to the port's PlanCache: every decode
+    step after the first is observed; each drift event bumps the
+    calibration version and costs exactly one frontier re-plan."""
+    from repro_torch.profiling import FeedbackLoop, LearnedCostModel
+
+    cfg, model, params = small_lm
+    cache, dag, _, _ = _port_toy_cache()
+    beliefs = LearnedCostModel()
+    beliefs.fit_entry("engine/decode", "decode",
+                      [(1.0, 0.0, 1e-9), (2.0, 0.0, 2e-9)])
+    fb = FeedbackLoop(beliefs, threshold=0.75)
+    eng = _engine(model, params, max_batch=1, max_len=64, feedback=fb,
+                  plan_cache=cache, default_dag=dag)
+    rid = eng.submit(np.asarray([5, 9, 2], np.int32), max_new_tokens=40,
+                     objective="energy")
+    done = eng.run_until_done()
+    assert done[rid].done
+    assert fb.observations == len(eng.decode_seconds) - 1 > 0
+    assert eng.replans == fb.replans >= 1 and State.EXPLORE in eng.trace
+    assert cache.misses == 1 + eng.replans
+    assert cache.invalidations == eng.replans
+    assert cache.version == eng.replans
 
 def test_engine_drift_replans_each_tenant_exactly_once(small_lm):
     import dataclasses
