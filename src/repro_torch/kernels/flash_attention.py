@@ -17,7 +17,7 @@ import torch
 
 from . import _build
 from ._wrap import (DTYPES, check_bthd, check_common, check_lengths,
-                    raise_on_error)
+                    check_no_grad, raise_on_error)
 
 launches = 0
 
@@ -36,6 +36,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Tq, Hq, D); k/v: (B, Tk, Hkv, D).  Returns (B, Tq, Hq, D) in
     q's dtype.  Semantics of ``repro.kernels.ref.attention_naive``."""
     global launches
+    check_no_grad("flash_attention", q, k, v)
     w = check_common(q, window)
     b, tq, hq, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v)):

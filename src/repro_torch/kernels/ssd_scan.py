@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._wrap import raise_on_error
+from ._wrap import check_no_grad, raise_on_error
 from .ref import _pad_chunks
 
 launches = 0
@@ -60,6 +60,7 @@ def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
     fp32.  Returns (y_diag (b, nc, c, nh*hd), states (b, nc, nh, n, hd)) in
     fp32.  Semantics of ``ref.ssd_intra_chunk``."""
     global launches
+    check_no_grad("ssd_intra_chunk", xdt, dacs, B, C)
     if xdt.device.type != "cuda":
         raise ValueError(
             f"the CUDA kernel takes CUDA tensors, got {xdt.device}; "

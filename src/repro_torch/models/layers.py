@@ -1,4 +1,4 @@
-"""Building blocks of the dense, SSM and hybrid decoders, ported from
+"""Building blocks of the dense, SSM, hybrid and MoE decoders, ported from
 ``repro.models.layers``.
 
 Parameters are plain dicts of tensors with the JAX package's names and
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from .config import ArchConfig
+from .config import ArchConfig, MoESpec
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -127,6 +127,64 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(cfg, xc @ p["w_up"].to(COMPUTE_DTYPE))
     return (h @ p["w_down"].to(COMPUTE_DTYPE)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-Experts FFN
+# --------------------------------------------------------------------------
+
+MOE_IMPLS = ("dense", "ep_a2a", "ep_a2a_q8")
+
+
+def moe_router(spec: MoESpec, router_w: torch.Tensor, x2d: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing.  Returns (weights (T, k) fp32, indices (T, k) int32):
+    the softmax over fp32 logits, its k largest, renormalised to sum 1."""
+    logits = x2d.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.topk(probs, spec.top_k, dim=-1)
+    vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return vals, idx.to(torch.int32)
+
+
+def moe_dense(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The oracle lowering: every expert computes every token, and a routed
+    combine mixes their outputs (the JAX package's ``moe_dense``, which its
+    engine serves).  The expert products are batched matmuls of x (1, T, d)
+    broadcast against the (E, d, f) stacks, which reads each stack in place;
+    an einsum may permute a stack into (d, E·f) first, a copy larger than
+    the product at decode."""
+    spec = cfg.moe
+    b, t, d = x.shape
+    x2 = x.reshape(b * t, d)
+    vals, idx = moe_router(spec, p["router"], x2)
+    w = torch.zeros((b * t, spec.num_experts), dtype=torch.float32,
+                    device=x.device).scatter_add_(1, idx.long(), vals)
+    xc = x2.to(COMPUTE_DTYPE)[None]                          # (1, T, d)
+    gate = torch.matmul(xc, p["w_gate"].to(COMPUTE_DTYPE))   # (E, T, f)
+    up = torch.matmul(xc, p["w_up"].to(COMPUTE_DTYPE))
+    h = _act(cfg, gate) * up
+    out_e = torch.matmul(h, p["w_down"].to(COMPUTE_DTYPE))   # (E, T, d)
+    y = torch.einsum("etd,te->td", out_e.float(), w)
+    return y.reshape(b, t, d).to(x.dtype)
+
+
+def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+              impl: str = "dense") -> torch.Tensor:
+    """``impl``: "dense" (``moe_dense``) or "ep_a2a", the expert-parallel
+    step at an EP axis of width 1 (``moe_ep.moe_ep_a2a``: routed tokens
+    sorted by expert through grouped products).  The all-to-all's int8
+    payload ("ep_a2a_q8") comes with the multi-GPU slice."""
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"moe impl {impl!r} not in {MOE_IMPLS}")
+    if impl == "dense":
+        return moe_dense(cfg, p, x)
+    if impl == "ep_a2a_q8":
+        raise NotImplementedError(
+            "the all-to-all's int8 payload (ep_a2a_q8) comes with the "
+            "multi-GPU slice")
+    from . import moe_ep
+    return moe_ep.moe_ep_a2a(cfg, p, x)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The port's model API, ``repro.models.model.Model`` for the dense, SSM and
-hybrid families.
+"""The port's model API, ``repro.models.model.Model`` for the dense, SSM,
+hybrid and MoE families.
 
 ``build_model(cfg)`` returns a ``Model`` exposing ``init``, ``init_cache``,
 the three step kinds ``apply_train / apply_prefill / apply_decode``, and the
@@ -18,9 +18,9 @@ from repro_torch.core.dag import Block, ModelDAG
 from . import transformer
 from .config import ArchConfig, ShapeConfig
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 # the slice that ports each family the port does not serve yet
-_LATER = {"moe": "the MoE slice", "audio": "the encoder-decoder/VLM slice",
+_LATER = {"audio": "the encoder-decoder/VLM slice",
           "vlm": "the encoder-decoder/VLM slice"}
 
 
@@ -125,34 +125,39 @@ class Model:
                                       _device.resolve(device))
 
     # ------------------------------------------------------------------- steps
-    def apply_train(self, params: dict, batch: dict) -> torch.Tensor:
+    # ``moe_impl`` is the MoE layers' lowering (``layers.moe_apply``); the
+    # engine passes none and serves "dense", as the JAX engine does.
+    def apply_train(self, params: dict, batch: dict, *,
+                    moe_impl: str = "dense") -> torch.Tensor:
         """Logits (B, T, V) fp32 over the whole sequence."""
         out, _ = transformer.forward(self.cfg, params, batch["tokens"],
-                                     mode="train")
+                                     mode="train", moe_impl=moe_impl)
         return out
 
-    def apply_prefill(self, params: dict, batch: dict
-                      ) -> tuple[torch.Tensor, dict]:
+    def apply_prefill(self, params: dict, batch: dict, *,
+                      moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
         """Last-position logits (B, 1, V) and the prompt's cache
         (``transformer.forward``)."""
         return transformer.forward(self.cfg, params, batch["tokens"],
                                    mode="prefill",
                                    lengths=batch.get("lengths"),
-                                   logits_tail=1)
+                                   moe_impl=moe_impl, logits_tail=1)
 
-    def apply_decode(self, params: dict, cache: dict, batch: dict
-                     ) -> tuple[torch.Tensor, dict]:
+    def apply_decode(self, params: dict, cache: dict, batch: dict, *,
+                     moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
         """One token per sequence at position ``lengths-1``; ``cache`` is
         updated in place and returned."""
         return transformer.forward(self.cfg, params, batch["tokens"],
                                    mode="decode", cache=cache,
-                                   lengths=batch["lengths"])
+                                   lengths=batch["lengths"],
+                                   moe_impl=moe_impl)
 
     # ------------------------------------------------------------ cost model
     def step_flops(self, shape: ShapeConfig) -> float:
         """Analytic useful FLOPs for one step (the JAX package's
         MODEL_FLOPS).  Train = 3× forward (6ND convention); remat overhead
-        NOT included.  The MoE, audio and VLM terms come with those
+        NOT included.  MoE layers count the router and the top-k experts
+        (``_moe_flops``); the audio and VLM terms come with those
         families."""
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len

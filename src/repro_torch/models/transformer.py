@@ -1,13 +1,15 @@
-"""The decoder-only LM of the dense, SSM and hybrid families, ported from
-``repro.models.transformer``.
+"""The decoder-only LM of the dense, SSM, hybrid and MoE families, ported
+from ``repro.models.transformer``.
 
 Parameters are stacked along a leading L axis as in the JAX package (so
 ``convert.from_jax`` maps them one to one); a Python loop over layers takes
 the place of ``lax.scan``.  An ``ssm`` layer is a Mamba-2 mixer alone; a
 ``hybrid`` layer runs attention and the mixer in parallel on the same input
-and averages them.  Non-uniform attention (gemma3's local:global)
-rides a per-layer window list: global layers get ``kv_len``.  Remat and the
-bf16 carry barrier are training concerns and come with the training slice.
+and averages them; a ``moe`` layer has a routed expert FFN in place of the
+MLP, lowered as ``moe_impl`` says.  Non-uniform attention (gemma3's
+local:global) rides a per-layer window list: global layers get ``kv_len``.
+Remat and the bf16 carry barrier are training concerns and come with the
+training slice.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
     N(0, 1/fan_in), embedding and head N(0, 0.02²), norms 0 (rmsnorm scales
     by 1 + w) or 1/0 (layernorm).  The layers hold what the family needs:
     ``ln1`` always, then ``ssm`` alone (ssm) or ``attn``, ``ssm`` (hybrid),
-    ``ln2`` and ``mlp``."""
+    ``ln2`` and ``mlp`` (``moe`` for the MoE family)."""
     d, nl = cfg.d_model, cfg.n_layers
     hq, hkv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
 
@@ -68,7 +70,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
         if cfg.family == "hybrid":
             layers["ssm"] = _ssm_params(cfg, proj, device, dtype)
         layers["ln2"] = _norm_params(cfg, (nl, d), device)
-        if cfg.act in ("swiglu", "geglu"):
+        if cfg.family == "moe":
+            layers["moe"] = _moe_params(cfg, gen, device, dtype)
+        elif cfg.act in ("swiglu", "geglu"):
             layers["mlp"] = {"w_gate": proj(d, ff), "w_up": proj(d, ff),
                              "w_down": proj(ff, d)}
         else:
@@ -95,6 +99,28 @@ def _ssm_params(cfg: ArchConfig, proj, device, dtype) -> dict:
             "dt_bias": const(torch.zeros(nh)),
             "norm": const(torch.zeros(di)),
             "w_out": proj(di, d)}
+
+
+def _moe_params(cfg: ArchConfig, gen: torch.Generator, device, dtype
+                ) -> dict:
+    """The routed experts of every layer, as ``repro.models.layers.
+    moe_params``: each of router (d, E), w_gate and w_up (E, d, f) and
+    w_down (E, f, d) N(0, 1/fan_in) with the fan-in its second-last axis.
+    Each stack is filled one layer at a time into a tensor of the asked
+    dtype, so the fp32 draw is one layer's (qwen3-moe-30b-a3b's whole
+    (48, 128, 2048, 768) stack in fp32 would be 38.7 GB, twice over)."""
+    m, d, nl = cfg.moe, cfg.d_model, cfg.n_layers
+    e, f = m.num_experts, m.d_ff_expert
+
+    def stack(*shape):
+        out = torch.empty((nl, *shape), device=device, dtype=dtype)
+        for i in range(nl):
+            out[i] = _normal(shape, 1.0 / math.sqrt(shape[-2]), gen, device,
+                             dtype)
+        return out
+
+    return {"router": stack(d, e), "w_gate": stack(e, d, f),
+            "w_up": stack(e, d, f), "w_down": stack(e, f, d)}
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -152,8 +178,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
 
 def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
                 positions: torch.Tensor, window: int | None,
-                layer_cache: dict | None, lengths: torch.Tensor | None
-                ) -> tuple[torch.Tensor, dict]:
+                layer_cache: dict | None, lengths: torch.Tensor | None,
+                moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
     """One layer; returns its output and its cache entries (the prompt's
     for prefill, the updated views of ``layer_cache`` for decode)."""
     def views(*keys):
@@ -175,6 +201,8 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
         a = (a + s) * 0.5                   # parallel heads, mean-fused
     x = x + a
     h2 = L.apply_norm(cfg, p["ln2"], x)
+    if cfg.family == "moe":
+        return x + L.moe_apply(cfg, p["moe"], h2, impl=moe_impl), new_cache
     return x + L.mlp(cfg, p["mlp"], h2), new_cache
 
 
@@ -185,7 +213,7 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             mode: str = "train", cache: dict | None = None,
             lengths: torch.Tensor | None = None,
-            logits_tail: int | None = None
+            moe_impl: str = "dense", logits_tail: int | None = None
             ) -> tuple[torch.Tensor, dict | None]:
     """tokens: (B, T) integer.
 
@@ -193,7 +221,9 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     (k/v (L, B, T, Hkv, hd); h (L, B, nh, hd, n) and conv (L, B, cw-1, C)
     for the SSM families).  mode="decode": T == 1, needs ``cache`` +
     ``lengths`` (new token position = lengths-1); the cache is updated in
-    place and returned.  ``logits_tail``: only unembed the last N positions.
+    place and returned.  ``moe_impl``: the MoE layers' lowering
+    (``layers.moe_apply``).  ``logits_tail``: only unembed the last N
+    positions.
     """
     b, t = tokens.shape
     x = L.embed(params["embed"], tokens).to(torch.bfloat16)
@@ -214,7 +244,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         lc = None if cache is None else {k: v[i] for k, v in cache.items()}
         x, lcache = apply_layer(cfg, layer_params(params["layers"], i), x,
                                 mode=mode, positions=positions, window=w,
-                                layer_cache=lc, lengths=lengths)
+                                layer_cache=lc, lengths=lengths,
+                                moe_impl=moe_impl)
         if mode == "prefill":
             for k, v in lcache.items():
                 built.setdefault(k, []).append(v)

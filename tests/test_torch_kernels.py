@@ -166,6 +166,43 @@ def test_kernel_wrappers_reject_cpu_tensors():
     assert fa.launches == 0 and da.launches == 0
 
 
+def _wrapper_calls():
+    """Each kernel wrapper with CPU inputs it would otherwise take."""
+    from repro_torch.kernels import ssd_scan
+    q = torch.zeros(1, 4, 2, 16)
+    lens = torch.tensor([4])
+    ssd_in = (torch.zeros(1, 1, 8, 2 * 8), torch.zeros(1, 1, 8, 2),
+              torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8, 4))
+    return {
+        "flash_attention": (fa.flash_attention, (q, q, q), {}),
+        "decode_attention": (da.decode_attention, (q[:, :1], q, q, lens),
+                             {}),
+        "ssd_intra_chunk": (ssd_scan.ssd_intra_chunk, ssd_in,
+                            {"nh": 2, "hd": 8}),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "ssd_intra_chunk"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
+    """A kernel's output carries no grad_fn, so a backward pass through it
+    would drop its inputs' gradients silently: under grad, a wrapper given
+    an input that requires grad raises, before its device check (so CPU
+    tensors show it); under no_grad the same call reaches the device check
+    as before, and nothing launches."""
+    fn, args, kw = _wrapper_calls()[name]
+    grad_args = [a.clone().requires_grad_(True) if i == 0 else a
+                 for i, a in enumerate(args)]
+    with pytest.raises(RuntimeError, match="training slice"):
+        fn(*grad_args, **kw)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(*grad_args, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(*args, **kw)                       # no input requires grad
+    assert fa.launches == 0 and da.launches == 0
+
+
 def test_chip_smoke_checks_the_reference_shape_lists():
     """chip_smoke.py holds the kernels to the same shape lists as the JAX
     package's kernel tests (it cannot import them: they import jax)."""

@@ -45,7 +45,8 @@ from repro_torch.profiling import (CalibratedCostProvider,  # noqa: E402
                                    Profiler, SyntheticGroundTruth)
 from repro_torch.serving.plan_cache import PlanCache  # noqa: E402
 
-ARCHS = ("gemma-2b", "mamba2-780m", "hymba-1.5b")
+ARCHS = ("gemma-2b", "mamba2-780m", "hymba-1.5b", "qwen3-moe-30b-a3b",
+         "mixtral-8x7b")
 # (name, seq_len, global_batch, kind): a 512-token prompt, a decode step of
 # four sequences over a 1024-position cache (the chip's serving shapes), and
 # a short training step
