@@ -21,7 +21,10 @@ each of which exits non-zero when it fails:
    and fp32; qwen3-moe-30b-a3b's 32 heads over 4 and mixtral-8x7b's 32 over
    8 at head_dim 128; mamba2-780m's and hymba-1.5b's SSD at chunk 128 and
    39, and a strong-decay case whose log-decay cumsum falls below -100 in a
-   chunk); and the grouped MoE step (``moe_ep.moe_ep_a2a`` on
+   chunk; cross-attention as whisper-tiny and llama-3.2-vision-11b call
+   it: flash non-causal with q_offset 0 over 1601 vision keys and over
+   fewer encoder rows than queries, decode with every length the whole
+   cross cache); and the grouped MoE step (``moe_ep.moe_ep_a2a`` on
    ``torch._grouped_mm``) against the dense oracle, one full-width layer of
    qwen3 at 4 and 441 tokens (one case with an expert that gets no token)
    and of mixtral at 39, at the bf16 ``TOL``;
@@ -36,7 +39,7 @@ each of which exits non-zero when it fails:
    ``PlanCache`` over ``HiDPPlanner``.  One line per sample (key, kind,
    shape, ms, fitted rate) and, for the serving shapes, the sweep's time
    beside the queued device time of the same call;
-4. four serving paths at full width, each a ``ServingEngine(max_batch=4,
+4. the serving paths at full width, each a ``ServingEngine(max_batch=4,
    max_len=1024)`` on seeded random bf16 weights, every kernel's launch
    counter set to 0 just before the run and read just after:
    - gemma-2b, all 18 layers, 8 requests: flash and decode attention; the
@@ -51,6 +54,13 @@ each of which exits non-zero when it fails:
      and profiler windows over decode steps and over one prefill;
    - hymba-1.5b, all 32 layers, 4 requests: all three kernels, and the
      two profiler windows;
+   - whisper-tiny, whole (4 encoder and 4 decoder layers), and
+     llama-3.2-vision-11b at full width and depth (40 layers: 8 groups of
+     4 self layers and a cross layer), 8 requests each: flash exactly 12
+     (whisper) and 40 (VLM) calls a prompt, decode 8 and 40 a decode step,
+     SSD none; prefill-then-decode against the full forward with random
+     frames or vision (VLM gates opened to 1.0), the decode and prefill
+     profiler windows, and the VLM's decode step beside its bound;
    - qwen3-moe-30b-a3b, all 48 layers (56.9 GiB of weights, once the
      earlier paths are freed), 8 requests: flash exactly 8 x 48 calls,
      decode 48 per decode step, SSD none; prefill-then-decode against the
@@ -68,7 +78,9 @@ each of which exits non-zero when it fails:
    layer, grouped and dense, beside its bound; engine tokens/s, prefill
    and decode-step ms.  Kernel times are device times: the timed call waits in
    the stream behind a sleep kernel, so the host's enqueue is not in them
-   (the attention lines also give the time with it).
+   (the attention lines also give the time with it).  Cross-attention is
+   timed the same way: flash at the VLM's 441 x 1601 and whisper's
+   441 x 220, decode over 1601 and 512 rows.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``.
@@ -174,6 +186,18 @@ SSD_PREFILL = [(1, 512, 48, 64, 128, 128), (1, 39, 48, 64, 128, 128),
 # cumsum falls below -100 inside a chunk and exp(dacs_i - dacs_j) overflows
 # for j > i (the kernel selects before the exp)
 STRONG_DECAY, STRONG_DECAY_A = (1, 256, 48, 64, 128, 128), 20.0
+# cross-attention, non-causal with q_offset 0 and no lengths, as the models
+# call it: (b, tq, tk, hq, hkv, d).  llama-3.2-vision-11b's 441- and 39-token
+# prompts over its 1601 vision tokens (not a multiple of the 64-key tile),
+# and whisper-tiny's decoder over its plen // 2 encoder rows (Tq > Tk).  The
+# first of each model is timed.
+CROSS_SHAPES = [(1, 441, 1601, 32, 8, 128), (1, 39, 1601, 32, 8, 128),
+                (1, 441, 220, 6, 6, 64), (1, 39, 19, 6, 6, 64)]
+# decode over a static cross cache, every length the whole cache
+# (b, s, hq, hkv, d): the VLM's 1601 vision rows (not a multiple of the
+# 32-key tile) and whisper-tiny's max_len // 2 encoder rows
+CROSS_DECODE_SHAPES = [(4, 1601, 32, 8, 128), (4, 512, 6, 6, 64)]
+WHISPER, VLM = "whisper-tiny", "llama-3.2-vision-11b"
 MAX_BATCH, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 1024, 8, 32
 HYBRID_REQUESTS = 4
 # published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 and TF32
@@ -396,8 +420,51 @@ def check_kernels() -> dict:
     err = check_ssd(STRONG_DECAY, 750, STRONG_DECAY_A)
     log(f"  ssd     {STRONG_DECAY} strong decay (A x {STRONG_DECAY_A}, "
         f"log-decay down to {low:.1f}): max|err| {err:.3e}")
+    flash, decode = check_cross()
+    worst["flash_attention"] = max(worst["flash_attention"], flash)
+    worst["decode_attention"] = max(worst["decode_attention"], decode)
     torch.cuda.synchronize()
     return worst
+
+
+def cross_case(b, tq, tk, hq, hkv, d, dtype, seed):
+    """q (b, tq, hq, d) and cross k/v (b, tk, hkv, d), and the keywords the
+    models' cross-attention passes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return ((_randn((b, tq, hq, d), dtype, gen),
+             _randn((b, tk, hkv, d), dtype, gen),
+             _randn((b, tk, hkv, d), dtype, gen)),
+            dict(causal=False, window=None, q_offset=0, lengths=None))
+
+
+def check_cross() -> tuple[float, float]:
+    """Both attention kernels at the cross-attention shapes of whisper-tiny
+    and llama-3.2-vision-11b against their plain versions, in bf16 and fp32:
+    flash non-causal with q_offset 0 and no lengths (Tq above and below Tk),
+    decode with every length the whole cache.  Returns the largest bf16
+    errors (flash, decode)."""
+    worst = [0.0, 0.0]
+    for i, (shape, dtype) in enumerate(
+            (c, dt) for c in CROSS_SHAPES for dt in TOL):
+        args, kw = cross_case(*shape, dtype, 1300 + i)
+        err = _check(f"flash cross {shape} {dtype}",
+                     fa.flash_attention(*args, **kw),
+                     ref.attention_naive(*args, **kw), TOL[dtype])
+        log(f"  flash   cross (b, tq, tk, hq, hkv, d) = {shape} {dtype}: "
+            f"max|err| {err:.3e}")
+        if dtype == torch.bfloat16:
+            worst[0] = max(worst[0], err)
+    for i, ((b, s, hq, hkv, d), dtype) in enumerate(
+            (c, dt) for c in CROSS_DECODE_SHAPES for dt in TOL):
+        args, lt = decode_case(b, s, hq, hkv, d, dtype, [s] * b, 1350 + i)
+        err = _check(f"decode cross B={b} S={s} {dtype}",
+                     da.decode_attention(*args, lt),
+                     ref.decode_attention_naive(*args, lt), TOL[dtype])
+        log(f"  decode  cross B={b} S={s} heads {hq}/{hkv} D={d} lengths = "
+            f"S {dtype}: max|err| {err:.3e}")
+        if dtype == torch.bfloat16:
+            worst[1] = max(worst[1], err)
+    return worst[0], worst[1]
 
 
 def moe_layer(cfg, seed: int) -> dict:
@@ -500,33 +567,37 @@ def check_engine(run, cfg, n: int, kernels) -> int:
     return tokens
 
 
-def check_prefill_then_decode(model, params, cfg, limit: float) -> float:
+def check_prefill_then_decode(model, params, cfg, limit: float,
+                              extra: dict | None = None) -> float:
     """Prefill P tokens, decode one, compare with the full forward at P:
-    5e-2 in relative norm, ``limit`` element-wise.  Logs beside it how far
-    the forward over P tokens and over P + 1 tokens part at position P - 1:
-    0 means the prompt's positions are computed exactly alike, and the
-    error is the decode step's own arithmetic."""
+    5e-2 in relative norm, ``limit`` element-wise.  ``extra`` holds the stub
+    frontends' input (``frames`` or ``vision``), given to the prefill and
+    the full forwards alike.  Logs beside it how far the forward over P
+    tokens and over P + 1 tokens part at position P - 1: 0 means the
+    prompt's positions are computed exactly alike, and the error is the
+    decode step's own arithmetic."""
     b, s = 2, 256
     p = s - 1
+    extra = extra or {}
     gen = torch.Generator(device="cuda").manual_seed(7)
     toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
     _, pcache = model.apply_prefill(params, {
-        "tokens": toks[:, :p],
+        **extra, "tokens": toks[:, :p],
         "lengths": torch.full((b,), p, dtype=torch.int32, device="cuda")})
     cache = model.init_cache(b, s)
     for k, v in pcache.items():
         if k in ("k", "v"):                 # positions: the prompt's prefix
-            cache[k][:, :, :p] = v
-        else:                               # SSM state, conv context: whole
-            cache[k].copy_(v)
+            cache[k][..., :p, :, :] = v
+        else:                               # SSM state, conv context, cross
+            cache[k].copy_(v)               # K/V: whole
     got, _ = model.apply_decode(params, cache, {
         "tokens": toks[:, p:],
         "lengths": torch.full((b,), p + 1, dtype=torch.int32,
                               device="cuda")})
-    full = model.apply_train(params, {"tokens": toks})
+    full = model.apply_train(params, {**extra, "tokens": toks})
     want = full[:, p]
-    floor = (model.apply_train(params, {"tokens": toks[:, :p]})[:, p - 1]
-             - full[:, p - 1]).abs().max().item()
+    floor = (model.apply_train(params, {**extra, "tokens": toks[:, :p]})
+             [:, p - 1] - full[:, p - 1]).abs().max().item()
     rel = ((got[:, 0] - want).norm() / want.norm()).item()
     top = (got[:, 0] - want).abs().max().item()
     log(f"prefill-then-decode vs full forward: relative error {rel:.3e}, "
@@ -556,8 +627,10 @@ def check_prefill_then_decode(model, params, cfg, limit: float) -> float:
 # over gemma-2b's 1e-1, so qwen3 is held to mamba2-780m's 2e-1, the bound of
 # the other 48-layer path; mixtral-8x7b at 8 layers to gemma-2b's.  The same
 # bounds hold ``check_moe_impls``.
+# whisper-tiny and llama-3.2-vision-11b run it with random frames or vision
+# and open gates, held to gemma-2b's bound.
 PTD_LIMIT = {"gemma-2b": 1e-1, "mamba2-780m": 2e-1, QWEN3: 2e-1,
-             MIXTRAL: 1e-1}
+             MIXTRAL: 1e-1, WHISPER: 1e-1, VLM: 1e-1}
 
 
 OUR_KERNELS = ("flash_bf16", "flash_f32", "decode_split", "decode_combine",
@@ -640,10 +713,12 @@ def decode_breakdown(model, params, prompts, steps: int = 8,
 
 def prefill_breakdown(model, params, prompt, reps: int = 2) -> str:
     """Where a prefill's time goes: ``model.apply_prefill`` of one prompt,
-    as the engine's admit calls it, after a warm-up call."""
+    as the engine's admit calls it (with the stub frontends' input), after a
+    warm-up call."""
     batch = {"tokens": torch.as_tensor(prompt[None, :], device="cuda"),
              "lengths": torch.tensor([len(prompt)], dtype=torch.int32,
-                                     device="cuda")}
+                                     device="cuda"),
+             **stub_inputs(model.cfg, 1, len(prompt), 0)}
     model.apply_prefill(params, batch)
     return _profiled(lambda: model.apply_prefill(params, batch), reps,
                      f"prefill of {len(prompt)} tokens")
@@ -748,6 +823,57 @@ def time_decode(lens, win, flush, heads=(HQ, HKV, HD)) -> dict:
                  lambda: ref.decode_attention_naive(*args, lt, window=win),
                  lambda: _sdpa(qt, kt, vt, m4), flush),
         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+
+
+def time_cross_flash(shape, flush) -> dict:
+    """Cross-attention prefill at ``shape`` (b, tq, tk, hq, hkv, d): every
+    query row against every key, no mask.  ``host_lengths_ms``: the same
+    call given its lengths as a host list, copied to the card each call (a
+    stream synchronisation), as the wrapper made them for ``lengths=None``
+    until it passed the kernel a null pointer instead."""
+    b, tq, tk, hq, hkv, d = shape
+    args, kw = cross_case(*shape, torch.bfloat16, 1400)
+    q, k, v = args
+    flops = 4.0 * hq * d * b * tq * tk
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    bound, by = _bound(flops, nbytes)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in args)
+    host = {**kw, "lengths": [tk] * b}
+    return dict(
+        **_times(lambda: fa.flash_attention(*args, **kw),
+                 lambda: ref.attention_naive(*args, **kw),
+                 lambda: _sdpa(qt, kt, vt, None), flush),
+        host_lengths_ms=time_ms(lambda: fa.flash_attention(*args, **host),
+                                flush),
+        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+
+
+def time_cross_decode(shape, flush) -> dict:
+    """Decode over a static cross cache at ``shape`` (b, s, hq, hkv, d),
+    every length the whole cache."""
+    b, s, hq, hkv, d = shape
+    args, lt = decode_case(b, s, hq, hkv, d, torch.bfloat16, [s] * b, 1450)
+    q, kc, vc = args
+    nbytes = 2.0 * (2 * q.numel() + kc.numel() + vc.numel()) + 4 * b
+    flops = 4.0 * hq * d * b * s
+    bound, by = _bound(flops, nbytes)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in args)
+    return dict(
+        **_times(lambda: da.decode_attention(*args, lt),
+                 lambda: ref.decode_attention_naive(*args, lt),
+                 lambda: _sdpa(qt, kt, vt, None), flush),
+        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+
+
+def _time_line(what: str, r: dict, smi: str) -> str:
+    """An attention timing: kernel, plain version and SDPA device ms, their
+    ratio, the bound, and the times with the host's enqueue."""
+    return (f"time {what}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+            f"kernel/sdpa {r['ms'] / r['library_ms']:.2f}, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}); with the host's "
+            f"enqueue: kernel {r['call_ms']:.4f} ms, sdpa "
+            f"{r['library_call_ms']:.4f} ms [{smi}]")
 
 
 def time_ssd(shape) -> dict:
@@ -1152,6 +1278,138 @@ def time_decode_steps(model, params, cfg, smi: str, reps: int = 5) -> None:
             f"{bd['experts']:.2f} experts read a layer) [{smi}]")
 
 
+def stub_inputs(cfg, b: int, t: int, seed: int) -> dict:
+    """Random stub frontend inputs, N(0, 1) x 0.1 in bf16 as
+    tests/test_arch_smoke.py draws them: whisper's (b, max(t // 2, 1), d)
+    frames or the VLM's (b, Nv, d) vision embeddings; none for the other
+    families.  (The engine feeds zeros, which make every cross K/V, or the
+    VLM's cross values, 0.)"""
+    if cfg.family not in ("audio", "vlm"):
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = max(t // 2, 1) if cfg.family == "audio" else cfg.n_vision_tokens
+    name = "frames" if cfg.family == "audio" else "vision"
+    return {name: _randn((b, rows, cfg.d_model), torch.bfloat16, gen) * 0.1}
+
+
+def open_gates(params: dict) -> dict:
+    """A copy of VLM parameters with both tanh gates of every cross layer at
+    1.0, so that the cross branch carries weight (they start at 0)."""
+    cross = params["cross"]
+    return {**params, "cross": {
+        **cross, "gate_attn": torch.ones_like(cross["gate_attn"]),
+        "gate_mlp": torch.ones_like(cross["gate_mlp"])}}
+
+
+def cross_launches(cfg) -> tuple[int, int]:
+    """Attention calls per admitted prompt (flash) and per decode step
+    (decode): whisper's 4 encoder, 4 self and 4 cross layers, then 4 self
+    and 4 cross; the VLM's 32 self and 8 cross layers, both times."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def vlm_decode_step_bound(cfg, params, lens) -> dict:
+    """Least time of one VLM decode step of len(lens) tokens.  Bytes: every
+    weight the step reads once (all but the embedding table, of which it
+    reads len(lens) rows, and the cross layers' wk/wv, whose K/V is
+    cached), the valid self k/v and the new ones written, the whole cross
+    cache, the fp32 logits.  Operations: 2 per weight element a token, and
+    attention over those keys, at the bf16 peak."""
+    b, d = len(lens), cfg.d_model
+    g, nv = cfg.n_layers // cfg.cross_attn_every, cfg.n_vision_tokens
+    n_self = cfg.n_layers - g
+    skip = [params["embed"]["embedding"], params["cross"]["xattn"]["wk"],
+            params["cross"]["xattn"]["wv"]]
+    read = [x for x in _leaves(params) if not any(x is y for y in skip)]
+    w_bytes = sum(x.numel() * x.element_size() for x in read)
+    # the products' weights: all but the fp32 norms and the (g,) gates
+    w_prod = sum(x.numel() for x in read
+                 if x.dtype != torch.float32 and x.dim() > 1)
+    valid = sum(min(n, MAX_LEN) for n in lens)
+    kv = 2 * cfg.n_kv_heads * cfg.hd * 2           # k and v of a position
+    nbytes = (w_bytes + 2.0 * b * d + n_self * (valid + b) * kv
+              + g * b * nv * kv + b * cfg.vocab * 4)
+    flops = (2.0 * b * w_prod
+             + 4.0 * cfg.n_heads * cfg.hd * (n_self * valid + g * b * nv))
+    ms, by = _bound(flops, nbytes)
+    return dict(bound_ms=ms, bound_by=by, bytes=nbytes, flops=flops,
+                weight_bytes=w_bytes)
+
+
+def time_vlm_decode_step(model, params, cfg, smi: str, reps: int = 5
+                         ) -> None:
+    """One full-width VLM decode step (4 x 1024 cache, the engine's
+    lengths): device ms (the profiler's kernel time) and host ms, beside
+    its bound."""
+    lens = DECODE_LENS[0][0]
+    cache = model.init_cache(MAX_BATCH, MAX_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (MAX_BATCH, 1),
+                                     generator=gen, device="cuda"),
+             "lengths": torch.tensor(lens, dtype=torch.int32,
+                                     device="cuda")}
+
+    def step():
+        return model.apply_decode(params, cache, batch)
+    step()
+    bd = vlm_decode_step_bound(cfg, params, lens)
+    r = _profile(step, reps)
+    host = _host_ms(step, reps)
+    dev = ("not measured" if r is None else
+           f"{r['device_ms']:.3f} ms on the device "
+           f"({r['device_ms'] / bd['bound_ms']:.2f}x its bound), "
+           f"{r['wall_ms']:.3f} ms on the host clock under the profiler")
+    log(f"time {cfg.name} decode step B=4 S=1024 lens={lens}: {dev}, "
+        f"{host:.3f} ms on the host clock without it; bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {bd['bytes'] / 1e9:.3f}"
+        f" GB, of which weights {bd['weight_bytes'] / 1e9:.3f} GB; "
+        f"{bd['flops'] / 1e9:.1f} GFLOP) [{smi}]")
+
+
+def serve_cross_families(smi: str) -> dict:
+    """whisper-tiny (whole) and llama-3.2-vision-11b (full width and depth)
+    through the engine, each freed before the next path: exact launch
+    counts (``cross_launches``; SSD never), prefill-then-decode with random
+    frames or vision (and the VLM's gates open) against the full forward,
+    the decode and prefill profiler windows, and the VLM's decode step
+    against its bound.  Returns each path's launches."""
+    out = {}
+    for aid in (WHISPER, VLM):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, model, params, prompts, run = serve(
+            aid, N_REQUESTS, ("flash_attention", "decode_attention"), smi)
+        steps = len(run["eng"].decode_seconds)
+        per_prompt, per_step = cross_launches(cfg)
+        want = {"flash_attention": N_REQUESTS * per_prompt,
+                "decode_attention": steps * per_step, "ssd_intra_chunk": 0}
+        if run["launches"] != want:
+            raise AssertionError(f"{aid} launches {run['launches']}, "
+                                 f"expected {want}")
+        log(f"{aid} launches = {N_REQUESTS} prompts x {per_prompt} of flash, "
+            f"{steps} decode steps x {per_step} of decode, no SSD")
+        out[aid] = run["launches"]
+        del run
+        gated = open_gates(params) if cfg.family == "vlm" else params
+        err = check_prefill_then_decode(model, gated, cfg, PTD_LIMIT[aid],
+                                        stub_inputs(cfg, 2, 256, 17))
+        log(f"{aid} prefill-then-decode vs full forward (B=2, P=255, random "
+            f"{'frames' if cfg.family == 'audio' else 'vision, gates 1.0'}):"
+            f" max|err| {err:.3e} within {PTD_LIMIT[aid]}")
+        log(f"{aid} where the time goes: "
+            f"{decode_breakdown(model, params, prompts)} [{smi}]")
+        log(f"{aid} prefill: {prefill_breakdown(model, params, prompts[0])} "
+            f"[{smi}]")
+        if cfg.family == "vlm":
+            time_vlm_decode_step(model, params, cfg, smi)
+        del params, model, gated
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_qwen3(smi: str) -> None:
     """qwen3-moe-30b-a3b at full width and depth through the engine, once
     the earlier paths are freed: exact launch counts (flash once a layer per
@@ -1362,6 +1620,12 @@ def main() -> int:
     del params, model, run
     torch.cuda.empty_cache()
 
+    # the encoder-decoder and VLM families: whisper-tiny whole and
+    # llama-3.2-vision-11b at full width and depth, freed before qwen3
+    cross = serve_cross_families(smi)
+    log(f"launches per engine run: {WHISPER} {cross[WHISPER]}, {VLM} "
+        f"{cross[VLM]}")
+
     # the MoE family: qwen3-moe-30b-a3b at full width and depth through the
     # engine, then mixtral-8x7b at full width and 8 layers
     serve_qwen3(smi)
@@ -1376,27 +1640,26 @@ def main() -> int:
                                  hymba_heads),
                                 (*PREFILL[0], qwen3_heads)]):
         r = time_flash(b, t, win, None, heads)  # q/k/v just produced: warm
-        log(f"time flash  heads={heads} B={b} T={t:4d} window={win}: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
-            f"{r['library_ms']:.4f} ms, kernel/sdpa "
-            f"{r['ms'] / r['library_ms']:.2f}, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}); with the host's enqueue: kernel "
-            f"{r['call_ms']:.4f} ms, sdpa {r['library_call_ms']:.4f} ms "
-            f"[{smi}]")
+        log(_time_line(f"flash  heads={heads} B={b} T={t:4d} window={win}",
+                       r, smi))
         records.setdefault("flash_attention", r)
+    for shape in (CROSS_SHAPES[0], CROSS_SHAPES[2]):
+        r = time_cross_flash(shape, None)       # cross k/v just produced
+        log(_time_line(f"flash  cross (b, tq, tk, hq, hkv, d) = {shape}", r,
+                       smi) + f"; given host lengths {r['host_lengths_ms']:.4f}"
+            " ms")
     for lens, win, heads in ([(*c, (HQ, HKV, HD)) for c in DECODE_LENS[:2]]
                              + [(DECODE_LENS[0][0], HYMBA_ATTN[3],
                                  hymba_heads),
                                 (*DECODE_LENS[0], qwen3_heads)]):
         r = time_decode(lens, win, flush, heads)  # cold cache, as in serving
-        log(f"time decode heads={heads} B=4 S=1024 lens={lens} window={win}: "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
-            f"{r['library_ms']:.4f} ms, kernel/sdpa "
-            f"{r['ms'] / r['library_ms']:.2f}, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']}); with the host's enqueue: kernel "
-            f"{r['call_ms']:.4f} ms, sdpa {r['library_call_ms']:.4f} ms "
-            f"[{smi}]")
+        log(_time_line(f"decode heads={heads} B=4 S=1024 lens={lens} "
+                       f"window={win}", r, smi))
         records.setdefault("decode_attention", r)
+    for shape in CROSS_DECODE_SHAPES:
+        r = time_cross_decode(shape, flush)
+        log(_time_line(f"decode cross (b, s, hq, hkv, d) = {shape}, lengths "
+                       "= S", r, smi))
     for shape in SSD_PREFILL:
         r = time_ssd(shape)
         log(f"time ssd    {shape}: kernel {r['ms']:.4f} ms, plain "

@@ -71,7 +71,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   sm.init_state(BQ);
   __syncthreads();
 
-  const long long length = min(lengths[b], Tk);
+  const long long length = lengths ? min(lengths[b], Tk) : Tk;
   const long long q_lo = (long long)q_offset + q0;  // first absolute q pos
   const long long q_hi = q_lo + BQ - 1;
   const long long win = window;
@@ -155,7 +155,7 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
   }
 
   // the contiguous range of kv tiles that pass the TPU kernel's `run` test
-  const int length = min(lengths[b], Tk);
+  const int length = lengths ? min(lengths[b], Tk) : Tk;
   const int q_lo = q_offset + q0, q_hi = q_lo + BM - 1;
   const int n_kt = (Tk + BN - 1) / BN;
   int first = -1, last = -2;
@@ -371,7 +371,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head and
 // feature axes must be dense (stride D and 1).  `o` is a dense
-// (B,Tq,Hq,D) tensor.  Returns cudaGetLastError() after the launch.
+// (B,Tq,Hq,D) tensor.  `lengths` may be null: every key is valid (the
+// encoder's and the cross-attention's calls), and no lengths tensor has to
+// be made and copied to the card for them.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_fwd(
     int dtype, int D, const void* q, const void* k, const void* v, void* o,
     const void* lengths, int B, int Tq, int Tk, int Hq, int Hkv,

@@ -47,15 +47,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"not match q {tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    lens = check_lengths([tk] * b if lengths is None else lengths, b,
-                         q.device)
+    # no lengths: a null pointer, every key valid (a tensor of Tk made here
+    # would be copied from the host, a stream synchronisation each call)
+    lens = None if lengths is None else check_lengths(lengths, b, q.device)
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_fwd(
         DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lens.data_ptr(), b, tq, tk, hq, hkv,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        out.data_ptr(), None if lens is None else lens.data_ptr(),
+        b, tq, tk, hq, hkv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), int(causal), int(q_offset), w,
         1.0 / math.sqrt(d), stream)
     launches += 1

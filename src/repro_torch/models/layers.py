@@ -1,4 +1,4 @@
-"""Building blocks of the dense, SSM, hybrid and MoE decoders, ported from
+"""Building blocks of every family's layers, ported from
 ``repro.models.layers``.
 
 Parameters are plain dicts of tensors with the JAX package's names and
@@ -63,32 +63,43 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # --------------------------------------------------------------------------
-# Attention block (self-attention with optional KV cache)
+# Attention block (self / cross, with optional KV cache)
 # --------------------------------------------------------------------------
 
 def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
               positions: torch.Tensor, mode: str, causal: bool = True,
               window: int | None = None, cache: dict | None = None,
-              lengths: torch.Tensor | None = None
-              ) -> tuple[torch.Tensor, dict]:
-    """Self-attention.
+              lengths: torch.Tensor | None = None,
+              kv_override: tuple[torch.Tensor, torch.Tensor] | None = None
+              ) -> tuple[torch.Tensor, dict | None]:
+    """Self- or cross-attention.
 
     mode: "full"   — train/prefill over the whole sequence; returns the
                      (k, v) computed here as the new cache entry.
           "decode" — T == 1; writes the new token's k/v into ``cache``
                      {"k","v"} of shape (B,S,Hkv,hd) at ``lengths-1`` and
                      attends over it.
+    kv_override: (k, v) already in head layout, (B, Tk, Hkv, hd) — the
+                 cross-attention of the whisper decoder and the VLM's image
+                 layers.  Its keys are not roped, and the query only when
+                 ``causal``; decode attends over all Tk keys and writes no
+                 cache.
     """
     b, t, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xc = x.to(COMPUTE_DTYPE)
     q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, t, hq, hd)
-    k = (xc @ p["wk"].to(COMPUTE_DTYPE)).reshape(b, t, hkv, hd)
-    v = (xc @ p["wv"].to(COMPUTE_DTYPE)).reshape(b, t, hkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = (xc @ p["wk"].to(COMPUTE_DTYPE)).reshape(b, t, hkv, hd)
+        v = (xc @ p["wv"].to(COMPUTE_DTYPE)).reshape(b, t, hkv, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
+        if causal:
+            q = rope(q, positions, cfg.rope_theta)
 
-    if mode == "decode":
+    if mode == "decode" and kv_override is None:
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
         slot = lengths.long() - 1                             # (B,)
@@ -100,6 +111,11 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
         cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
         out = ops.decode_attention(q, cache["k"], cache["v"], lengths,
                                    window=window)
+        new_cache = cache
+    elif mode == "decode":                                # cross, static KV
+        full = torch.full((b,), k.shape[1], dtype=torch.int32,
+                          device=x.device)
+        out = ops.decode_attention(q, k, v, full, window=None)
         new_cache = cache
     else:
         out = ops.flash_attention(q, k, v, causal=causal, window=window,

@@ -1,5 +1,5 @@
-"""The port's model API, ``repro.models.model.Model`` for the dense, SSM,
-hybrid and MoE families.
+"""The port's model API, ``repro.models.model.Model``, for every family of
+the zoo: dense, SSM, hybrid, MoE, the encoder-decoder (audio) and the VLM.
 
 ``build_model(cfg)`` returns a ``Model`` exposing ``init``, ``init_cache``,
 the three step kinds ``apply_train / apply_prefill / apply_decode``, and the
@@ -15,13 +15,8 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.dag import Block, ModelDAG
-from . import transformer
+from . import encdec, transformer, vlm
 from .config import ArchConfig, ShapeConfig
-
-FAMILIES = ("dense", "ssm", "hybrid", "moe")
-# the slice that ports each family the port does not serve yet
-_LATER = {"audio": "the encoder-decoder/VLM slice",
-          "vlm": "the encoder-decoder/VLM slice"}
 
 
 # --------------------------------------------------------------------------
@@ -104,61 +99,91 @@ def _per_layer_windows(cfg: ArchConfig) -> list[int | None]:
 class Model:
     cfg: ArchConfig
 
-    def __post_init__(self):
-        if self.cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.family!r} family is ported "
-                f"with {_LATER[self.cfg.family]}; this port serves "
-                f"{', '.join(FAMILIES)}")
-
     # ------------------------------------------------------------------ params
     def init(self, generator: torch.Generator, device="cuda",
              dtype: torch.dtype = torch.float32) -> dict:
-        """Seeded parameters on ``device``; matmul weights, embeddings and
-        the SSM mixer's A_log/D/dt_bias/norm in ``dtype``, norm weights
-        fp32.  ``generator`` must live on ``device``."""
+        """Seeded parameters on ``device``; matmul weights, embeddings, the
+        SSM mixer's A_log/D/dt_bias/norm and the VLM's gates in ``dtype``,
+        norm weights fp32.  ``generator`` must live on ``device``."""
         dev = _device.resolve(device)
+        if self.cfg.family == "audio":
+            return encdec.init_params(self.cfg, generator, dev, dtype)
+        if self.cfg.family == "vlm":
+            return vlm.init_params(self.cfg, generator, dev, dtype)
         return transformer.init_params(self.cfg, generator, dev, dtype)
 
-    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
-        return transformer.init_cache(self.cfg, batch, max_len,
-                                      _device.resolve(device))
+    def init_cache(self, batch: int, max_len: int, device="cuda",
+                   enc_len: int | None = None) -> dict:
+        """The decode cache; the audio family's cross cache holds
+        ``enc_len`` encoder rows (``max_len // 2`` by default)."""
+        dev = _device.resolve(device)
+        if self.cfg.family == "audio":
+            return encdec.init_cache(self.cfg, batch, max_len,
+                                     enc_len or max_len // 2, dev)
+        if self.cfg.family == "vlm":
+            return vlm.init_cache(self.cfg, batch, max_len, dev)
+        return transformer.init_cache(self.cfg, batch, max_len, dev)
 
     # ------------------------------------------------------------------- steps
     # ``moe_impl`` is the MoE layers' lowering (``layers.moe_apply``); the
-    # engine passes none and serves "dense", as the JAX engine does.
+    # engine passes none and serves "dense", as the JAX engine does.  The
+    # audio family reads ``batch["frames"]`` (B, T_enc, d) and the VLM
+    # ``batch["vision"]`` (B, Nv, d) in train and prefill.
     def apply_train(self, params: dict, batch: dict, *,
                     moe_impl: str = "dense") -> torch.Tensor:
         """Logits (B, T, V) fp32 over the whole sequence."""
-        out, _ = transformer.forward(self.cfg, params, batch["tokens"],
-                                     mode="train", moe_impl=moe_impl)
+        cfg = self.cfg
+        if cfg.family == "audio":
+            out, _ = encdec.forward(cfg, params, batch["frames"],
+                                    batch["tokens"], mode="train")
+        elif cfg.family == "vlm":
+            out, _ = vlm.forward(cfg, params, batch["tokens"],
+                                 vision=batch["vision"], mode="train")
+        else:
+            out, _ = transformer.forward(cfg, params, batch["tokens"],
+                                         mode="train", moe_impl=moe_impl)
         return out
 
     def apply_prefill(self, params: dict, batch: dict, *,
                       moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
-        """Last-position logits (B, 1, V) and the prompt's cache
-        (``transformer.forward``)."""
-        return transformer.forward(self.cfg, params, batch["tokens"],
-                                   mode="prefill",
-                                   lengths=batch.get("lengths"),
+        """Last-position logits (B, 1, V) and the prompt's cache."""
+        cfg = self.cfg
+        lengths = batch.get("lengths")
+        if cfg.family == "audio":
+            return encdec.forward(cfg, params, batch["frames"],
+                                  batch["tokens"], mode="prefill",
+                                  lengths=lengths, logits_tail=1)
+        if cfg.family == "vlm":
+            return vlm.forward(cfg, params, batch["tokens"],
+                               vision=batch["vision"], mode="prefill",
+                               lengths=lengths, logits_tail=1)
+        return transformer.forward(cfg, params, batch["tokens"],
+                                   mode="prefill", lengths=lengths,
                                    moe_impl=moe_impl, logits_tail=1)
 
     def apply_decode(self, params: dict, cache: dict, batch: dict, *,
                      moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
         """One token per sequence at position ``lengths-1``; ``cache`` is
         updated in place and returned."""
-        return transformer.forward(self.cfg, params, batch["tokens"],
+        cfg = self.cfg
+        lengths = batch["lengths"]
+        if cfg.family == "audio":
+            return encdec.decode(cfg, params, batch["tokens"], mode="decode",
+                                 cache=cache, lengths=lengths)
+        if cfg.family == "vlm":
+            return vlm.forward(cfg, params, batch["tokens"], mode="decode",
+                               cache=cache, lengths=lengths)
+        return transformer.forward(cfg, params, batch["tokens"],
                                    mode="decode", cache=cache,
-                                   lengths=batch["lengths"],
-                                   moe_impl=moe_impl)
+                                   lengths=lengths, moe_impl=moe_impl)
 
     # ------------------------------------------------------------ cost model
     def step_flops(self, shape: ShapeConfig) -> float:
         """Analytic useful FLOPs for one step (the JAX package's
         MODEL_FLOPS).  Train = 3× forward (6ND convention); remat overhead
         NOT included.  MoE layers count the router and the top-k experts
-        (``_moe_flops``); the audio and VLM terms come with those
-        families."""
+        (``_moe_flops``); the audio family adds its encoder and the
+        decoder's cross-attention, the VLM its cross layers."""
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         decode = shape.kind == "decode"
@@ -169,6 +194,22 @@ class Model:
             ctx = _eff_ctx(S if decode else S, w, causal=True)
             total += tokens * layer_flops_per_token(cfg, ctx, decode=decode,
                                                     window=w)
+        if cfg.family == "audio":
+            enc_tokens = B * (S // 2 if not decode else S // 2)
+            enc_layer = (_attn_proj_flops(cfg)
+                         + _attn_ctx_flops(cfg, (S // 2) if not decode
+                                           else S // 2)
+                         + _mlp_flops(cfg))
+            if not decode:
+                total += enc_tokens * enc_layer * cfg.encoder_layers
+            # decoder cross-attention (per decoder layer, context = enc len)
+            total += tokens * cfg.n_layers * (
+                _attn_ctx_flops(cfg, S // 2) + _attn_proj_flops(cfg) / 2)
+        if cfg.family == "vlm":
+            ng = vlm.n_groups(cfg)
+            total += tokens * ng * (
+                _attn_ctx_flops(cfg, cfg.n_vision_tokens)
+                + _attn_proj_flops(cfg) / 2 + _mlp_flops(cfg))
         # head (+ embed lookup is gather, ~0 flops)
         head_positions = tokens if shape.kind == "train" else B
         total += head_positions * 2.0 * cfg.d_model * cfg.vocab

@@ -35,7 +35,7 @@ def _normal(shape, scale: float, gen: torch.Generator, device, dtype
     return (x * scale).to(dtype)
 
 
-def _norm_params(cfg: ArchConfig, shape, device) -> dict:
+def norm_params(cfg: ArchConfig, shape, device) -> dict:
     """Norm weights stay fp32 whatever the parameter dtype, as in the JAX
     package."""
     if cfg.norm == "layernorm":
@@ -58,10 +58,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
         return _normal((nl, *shape), 1.0 / math.sqrt(shape[0]), gen, device,
                        dtype)
 
-    emb = {"embedding": _normal((cfg.vocab, d), 0.02, gen, device, dtype)}
-    if not cfg.tie_embeddings:
-        emb["head"] = _normal((d, cfg.vocab), 0.02, gen, device, dtype)
-    layers = {"ln1": _norm_params(cfg, (nl, d), device)}
+    emb = embed_params(cfg, gen, device, dtype)
+    layers = {"ln1": norm_params(cfg, (nl, d), device)}
     if cfg.family == "ssm":
         layers["ssm"] = _ssm_params(cfg, proj, device, dtype)
     else:
@@ -69,7 +67,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
                           "wv": proj(d, hkv * hd), "wo": proj(hq * hd, d)}
         if cfg.family == "hybrid":
             layers["ssm"] = _ssm_params(cfg, proj, device, dtype)
-        layers["ln2"] = _norm_params(cfg, (nl, d), device)
+        layers["ln2"] = norm_params(cfg, (nl, d), device)
         if cfg.family == "moe":
             layers["moe"] = _moe_params(cfg, gen, device, dtype)
         elif cfg.act in ("swiglu", "geglu"):
@@ -78,7 +76,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
         else:
             layers["mlp"] = {"w_up": proj(d, ff), "w_down": proj(ff, d)}
     return {"embed": emb, "layers": layers,
-            "final_norm": _norm_params(cfg, (d,), device)}
+            "final_norm": norm_params(cfg, (d,), device)}
 
 
 def _ssm_params(cfg: ArchConfig, proj, device, dtype) -> dict:
@@ -101,23 +99,67 @@ def _ssm_params(cfg: ArchConfig, proj, device, dtype) -> dict:
             "w_out": proj(di, d)}
 
 
+def stacked_normal(lead: tuple, shape: tuple, gen: torch.Generator, device,
+                   dtype) -> torch.Tensor:
+    """A (*lead, *shape) stack of N(0, 1/fan_in) weights, the fan-in
+    ``shape[-2]``, filled one layer at a time into a tensor of ``dtype`` so
+    that the fp32 draw is one layer's (qwen3-moe-30b-a3b's whole
+    (48, 128, 2048, 768) expert stack in fp32 would be 38.7 GB, twice over;
+    llama-3.2-vision-11b's (8, 4, 4096, 14336) MLP stack 7.5 GB)."""
+    out = torch.empty((*lead, *shape), device=device, dtype=dtype)
+    flat = out.view(-1, *shape)
+    for i in range(flat.shape[0]):
+        flat[i] = _normal(shape, 1.0 / math.sqrt(shape[-2]), gen, device,
+                          dtype)
+    return out
+
+
+def attn_params(cfg: ArchConfig, lead: tuple, gen: torch.Generator, device,
+                dtype) -> dict:
+    """A stack of ``repro.models.layers.attn_params``, drawn layer by
+    layer."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
+              "wo": (hq * hd, d)}
+    return {k: stacked_normal(lead, s, gen, device, dtype)
+            for k, s in shapes.items()}
+
+
+def mlp_params(cfg: ArchConfig, lead: tuple, gen: torch.Generator, device,
+               dtype) -> dict:
+    """A stack of ``repro.models.layers.mlp_params``, drawn layer by
+    layer."""
+    d, ff = cfg.d_model, cfg.d_ff
+    names = (("w_gate", "w_up") if cfg.act in ("swiglu", "geglu")
+             else ("w_up",))
+    out = {k: stacked_normal(lead, (d, ff), gen, device, dtype)
+           for k in names}
+    out["w_down"] = stacked_normal(lead, (ff, d), gen, device, dtype)
+    return out
+
+
+def embed_params(cfg: ArchConfig, gen: torch.Generator, device, dtype
+                 ) -> dict:
+    """Embedding and untied head, N(0, 0.02²)."""
+    emb = {"embedding": _normal((cfg.vocab, cfg.d_model), 0.02, gen, device,
+                                dtype)}
+    if not cfg.tie_embeddings:
+        emb["head"] = _normal((cfg.d_model, cfg.vocab), 0.02, gen, device,
+                              dtype)
+    return emb
+
+
 def _moe_params(cfg: ArchConfig, gen: torch.Generator, device, dtype
                 ) -> dict:
     """The routed experts of every layer, as ``repro.models.layers.
     moe_params``: each of router (d, E), w_gate and w_up (E, d, f) and
-    w_down (E, f, d) N(0, 1/fan_in) with the fan-in its second-last axis.
-    Each stack is filled one layer at a time into a tensor of the asked
-    dtype, so the fp32 draw is one layer's (qwen3-moe-30b-a3b's whole
-    (48, 128, 2048, 768) stack in fp32 would be 38.7 GB, twice over)."""
+    w_down (E, f, d) N(0, 1/fan_in) with the fan-in its second-last axis,
+    drawn layer by layer."""
     m, d, nl = cfg.moe, cfg.d_model, cfg.n_layers
     e, f = m.num_experts, m.d_ff_expert
 
     def stack(*shape):
-        out = torch.empty((nl, *shape), device=device, dtype=dtype)
-        for i in range(nl):
-            out[i] = _normal(shape, 1.0 / math.sqrt(shape[-2]), gen, device,
-                             dtype)
-        return out
+        return stacked_normal((nl,), shape, gen, device, dtype)
 
     return {"router": stack(d, e), "w_gate": stack(e, d, f),
             "w_up": stack(e, d, f), "w_down": stack(e, f, d)}

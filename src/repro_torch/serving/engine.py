@@ -256,6 +256,18 @@ class ServingEngine:
                                                device=self.device),
                      "lengths": torch.tensor([plen], dtype=torch.int32,
                                              device=self.device)}
+            # the stub frontends' inputs, zeros as in the JAX engine: the
+            # audio cross cache gets plen // 2 rows, and rows past them keep
+            # what an earlier request left there
+            cfg = self.model.cfg
+            if cfg.family == "audio":
+                batch["frames"] = torch.zeros(
+                    (1, max(plen // 2, 1), cfg.d_model),
+                    dtype=torch.bfloat16, device=self.device)
+            if cfg.family == "vlm":
+                batch["vision"] = torch.zeros(
+                    (1, cfg.n_vision_tokens, cfg.d_model),
+                    dtype=torch.bfloat16, device=self.device)
             t0 = time.perf_counter()
             logits, pcache = self.model.apply_prefill(self.params, batch)
             self._write_slot(slot, pcache)

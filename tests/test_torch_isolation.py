@@ -93,6 +93,20 @@ def test_entry_points_refuse_cuda_without_a_gpu():
         ops.set_backend("cuda")
 
 
+@pytest.mark.parametrize("aid", ["whisper-tiny", "llama-3.2-vision-11b"])
+def test_cross_families_refuse_cuda_without_a_gpu(aid):
+    """The encoder-decoder and VLM entry points default to cuda too."""
+    _needs_no_gpu()
+    model = build_model(get_config(aid).reduced())
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init(torch.Generator(), device="cuda")
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(model, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        model.init_cache(1, 8)
+
+
 @pytest.mark.parametrize("aid", ARCH_IDS)
 def test_config_copies_equal_their_counterparts(aid):
     assert dataclasses.asdict(get_config(aid)) == \

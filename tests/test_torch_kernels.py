@@ -138,6 +138,43 @@ def test_decode_attention_matches_pallas_interpret(dtype):
     _close(ops.decode_attention(q, kc, vc, lens, window=win), want, dtype)
 
 
+# cross-attention (the whisper decoder's and the VLM's image layers):
+# non-causal, q_offset 0, no lengths, Tq below and above Tk, Tk not a
+# multiple of the key block.  (b, tq, tk, hq, hkv, d, bq, bk)
+CROSS_SHAPES = [(1, 24, 72, 4, 2, 32, 16, 32), (2, 40, 12, 6, 6, 16, 16, 8)]
+
+
+@pytest.mark.parametrize("fn", ["naive", "blocked"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+def test_cross_attention_matches_pallas_interpret(shape, dtype, fn):
+    b, tq, tk, hq, hkv, d, bq, bk = shape
+    (q, jq), (k, jk), (v, jv) = _qkv(11, b, tq, tk, hq, hkv, d, dtype)
+    want = jfa.flash_attention(jq, jk, jv, causal=False, block_q=bq,
+                               block_k=bk, interpret=True)
+    if fn == "naive":
+        got = ref.attention_naive(q, k, v, causal=False)
+    else:
+        got = ref.attention_blocked(q, k, v, causal=False, block_q=bq,
+                                    block_k=bk)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s", [72, 12])
+def test_cross_decode_matches_pallas_interpret(s, dtype):
+    """Decode against a static cross cache: every length is the whole cache,
+    not a multiple of the Pallas key block (32)."""
+    b, hq, hkv, d = 2, 8, 2, 32
+    (q, jq), (kc, jkc), (vc, jvc) = _qkv(12, b, 1, s, hq, hkv, d, dtype)
+    lens = np.full((b,), s, np.int32)
+    want = jda.decode_attention(jq, jkc, jvc, jnp.asarray(lens), block_k=32,
+                                interpret=True)
+    _close(ops.decode_attention(q, kc, vc, torch.from_numpy(lens)), want,
+           dtype)
+    assert da.launches == 0
+
+
 def test_fully_masked_rows_are_zero_not_nan():
     """Rows with no valid key (q past lengths under a window, empty slots)
     give 0 in every plain version, as in the reference."""

@@ -13,7 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import build_model as jbuild_model  # noqa: E402
-from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import from_jax  # noqa: E402
 
@@ -135,15 +135,6 @@ def test_prefill_then_decode_matches_full_forward(pair):
                                               dtype=torch.int32)})
     want = model.apply_train(params, {"tokens": toks})[:, p]
     _close(got[:, 0], want.numpy())
-
-
-@pytest.mark.parametrize(
-    "aid", [a for a in ARCH_IDS
-            if get_config(a).family not in ("dense", "ssm", "hybrid", "moe")])
-def test_other_families_name_their_slice(aid):
-    cfg = get_config(aid).reduced()
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(cfg)
 
 
 def test_init_uses_the_jax_distributions():

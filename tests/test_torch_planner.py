@@ -46,7 +46,7 @@ from repro_torch.profiling import (CalibratedCostProvider,  # noqa: E402
 from repro_torch.serving.plan_cache import PlanCache  # noqa: E402
 
 ARCHS = ("gemma-2b", "mamba2-780m", "hymba-1.5b", "qwen3-moe-30b-a3b",
-         "mixtral-8x7b")
+         "mixtral-8x7b", "whisper-tiny", "llama-3.2-vision-11b")
 # (name, seq_len, global_batch, kind): a 512-token prompt, a decode step of
 # four sequences over a 1024-position cache (the chip's serving shapes), and
 # a short training step
