@@ -38,7 +38,14 @@ each of which exits non-zero when it fails:
    attention layers from the card's entry, not the datasheet, and backs a
    ``PlanCache`` over ``HiDPPlanner``.  One line per sample (key, kind,
    shape, ms, fitted rate) and, for the serving shapes, the sweep's time
-   beside the queued device time of the same call;
+   beside the queued device time of the same call.  Then GPU-tier planning
+   and elasticity, on the host: an ``ElasticController`` on the H100 for
+   gemma-2b's ``train_4k`` over two 8-GPU hosts (``GPU_MULTI_NODE``),
+   driven by a ``FleetController`` over ``paper_cluster(2)`` whose tx2
+   leaves and returns, must go 2 -> 1 -> 2 hosts in 2 re-plans; and
+   ``plan_gpu`` plans every applicable cell of the 10 configs x 4 shapes x
+   (``GPU_NODE``, ``GPU_MULTI_NODE``), one line each (layout, the three
+   predicted terms, resident GiB, planning ms on the host);
 4. the serving paths at full width, each a ``ServingEngine(max_batch=4,
    max_len=1024)`` on seeded random bf16 weights, every kernel's launch
    counter set to 0 just before the run and read just after:
@@ -46,7 +53,15 @@ each of which exits non-zero when it fails:
      same requests again through the plan cache (its tenant
      ``block_costs`` of a 4 x 1024 decode step) and a ``FeedbackLoop``
      (1 miss and 7 hits, plus a re-plan per drift event; every decode step
-     after the first observed; the same greedy tokens), then
+     after the first observed; the same greedy tokens), then a third time
+     under fleet churn: a ``PlanCache`` over ``battery_cluster()`` keyed
+     on the membership of a ``FleetController`` whose tx2 leaves after
+     decode step 8 and returns after step 24, each epoch re-entering
+     EXPLORE through ``on_membership_change``, with a ``TelemetryRecorder``
+     (exactly 2 re-plans and 2 misses, no tx2 in the plan made while it is
+     away, the greedy tokens and flash/decode launch counts of the run
+     without churn, the recorder's ``engine.replan`` counters and
+     ``fleet.membership`` gauges at epochs 1 and 2), then
      prefill-then-decode logits against the full forward and a profiler
      window over decode steps (device-busy share);
    - mamba2-780m, all 48 layers, 8 requests: the SSD kernel and no
@@ -105,22 +120,30 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core import (ANALYTIC, Cluster, HiDPPlanner,  # noqa: E402
-                              PlannerConfig, gpu_node, node_as_resource,
-                              plan_to_dict, processors_as_resources)
+                              PlannerConfig, battery_cluster, gpu_node,
+                              node_as_resource, paper_cluster, plan_to_dict,
+                              processors_as_resources)
+from repro_torch.fleet import ChurnTrace, FleetController  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import ShapeConfig, build_model  # noqa: E402
+from repro_torch.models import SHAPES as CELLS  # noqa: E402
+from repro_torch.models import shape_applicable  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe_ep  # noqa: E402
 from repro_torch.profiling import (DEFAULT_KERNEL_SHAPES,  # noqa: E402
                                    CalibratedCostProvider, CalibrationStore,
                                    FeedbackLoop, LearnedCostModel, Profiler)
 from repro_torch.profiling.profiler import kernel_call  # noqa: E402
+from repro_torch.runtime import ElasticController  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.plan_cache import PlanCache  # noqa: E402
+from repro_torch.sharding.plan import (GPU_MULTI_NODE, GPU_NODE,  # noqa: E402
+                                       H100, plan_gpu)
+from repro_torch.telemetry import TelemetryRecorder  # noqa: E402
 
 # tests/test_kernels.py's lists (that module imports jax); a CPU test holds
 # these copies equal to it.
@@ -200,6 +223,10 @@ CROSS_DECODE_SHAPES = [(4, 1601, 32, 8, 128), (4, 512, 6, 6, 64)]
 WHISPER, VLM = "whisper-tiny", "llama-3.2-vision-11b"
 MAX_BATCH, MAX_LEN, N_REQUESTS, MAX_NEW = 4, 1024, 8, 32
 HYBRID_REQUESTS = 4
+# the churn phase's trace: tx2 leaves the battery fleet and comes back; the
+# fleet advances to CHURN_AT[i][1] right after decode step CHURN_AT[i][0]
+CHURN = [(1.0, "tx2", "leave"), (2.0, "tx2", "join")]
+CHURN_AT = ((8, 1.5), (24, 2.5))
 # published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 and TF32
 # tensor cores, memory
 PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 989e12, 495e12, 3.35e12
@@ -1041,6 +1068,158 @@ def serve_planned(model, params, prompts, run, plan, smi: str) -> None:
     log(f"launches in the planned run: {planned['launches']}")
 
 
+def serve_churn(model, params, prompts, run, smi: str) -> dict:
+    """The counted run again under fleet churn: a ``PlanCache`` over
+    ``battery_cluster()`` keyed on the membership of a ``FleetController``
+    replaying ``CHURN``, whose epochs re-enter EXPLORE through
+    ``on_membership_change``; one ``TelemetryRecorder`` for all three.  The
+    fleet advances between ``step()`` calls only, so no re-plan falls
+    between a decode step's launch and its sync.  Checks: 2 re-plans, 2
+    misses (the first submit and the new membership; the return is a hit),
+    no tx2 in the plan made while it is away, the greedy tokens and the
+    flash/decode launch counts of the run without churn, and the recorder's
+    ``engine.replan`` counters and ``fleet.membership`` gauges."""
+    n = len(run["rids"])
+    rec = TelemetryRecorder("churn")
+    cluster = battery_cluster()
+    fleet = FleetController(cluster, ChurnTrace.scripted(CHURN),
+                            telemetry=rec)
+    cache = PlanCache(HiDPPlanner(), cluster, membership_source=fleet,
+                      telemetry=rec)
+    dag = model.block_costs(ShapeConfig("serve", MAX_LEN, MAX_BATCH,
+                                        "decode"))
+    eng = ServingEngine(model, params, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                        plan_cache=cache, default_dag=dag, telemetry=rec)
+    fleet.on_epoch = eng.on_membership_change
+    rids, submit_s = [], []
+    for p in prompts[:n]:
+        t0 = time.perf_counter()
+        rids.append(eng.submit(p, max_new_tokens=MAX_NEW))
+        submit_s.append(time.perf_counter() - t0)
+    for mod in COUNTERS.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps, epoch_s, away = 0, [], None
+    at = dict(CHURN_AT)
+    while eng.queue or eng.active():
+        eng.step()                       # ends in a sync: nothing in flight
+        steps += 1
+        if steps in at:
+            t1 = time.perf_counter()
+            fleet.advance(at[steps])
+            epoch_s.append(time.perf_counter() - t1)
+            nodes = {a.node.name for a in eng.plan.global_plan.assignments}
+            if at[steps] < CHURN[1][0]:
+                away = nodes
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: mod.launches for k, mod in COUNTERS.items()}
+    done = eng.completed
+
+    if len(epoch_s) != len(CHURN_AT) or fleet.epoch != 2:
+        raise AssertionError(f"the run ended after {steps} steps, before "
+                             f"the fleet reached epoch 2 ({fleet.epoch})")
+    if eng.replans != 2:
+        raise AssertionError(f"{eng.replans} re-plans under churn, not 2")
+    if cache.misses != 2 or cache.hits != n:
+        raise AssertionError(f"plan cache: {cache.misses} misses and "
+                             f"{cache.hits} hits, expected 2 and {n}")
+    if away is None or "tx2" in away:
+        raise AssertionError(f"the plan made while tx2 was away uses "
+                             f"{sorted(away or ())}")
+    for a, b in zip(run["rids"], rids):
+        if run["done"][a].generated != done[b].generated:
+            raise AssertionError(f"request {b} emitted other tokens under "
+                                 "churn than without")
+    if launches != run["launches"]:
+        raise AssertionError(f"launches under churn {launches}, without "
+                             f"{run['launches']}")
+    replans = [(e.value, e.epoch, e.attrs["reason"]) for e in rec.events
+               if e.name == "engine.replan"]
+    members = [(e.value, e.epoch) for e in rec.events
+               if e.name == "fleet.membership"]
+    if replans != [(1.0, 1, "epoch"), (1.0, 2, "epoch")]:
+        raise AssertionError(f"engine.replan counters {replans}")
+    if members != [(4.0, 1), (5.0, 2)]:
+        raise AssertionError(f"fleet.membership gauges {members}")
+    resolved = [e.attrs["resolved"] for e in rec.events
+                if e.name == "engine.submit"]
+    if resolved != ["miss"] + ["hit"] * (n - 1):
+        raise AssertionError(f"engine.submit resolutions {resolved}")
+    tokens = n * MAX_NEW
+    hit_ms = statistics.median(submit_s[1:]) * 1e3
+    log(f"{model.cfg.name} churn run: {n} requests, tx2 leaves after "
+        f"decode step {CHURN_AT[0][0]} and returns after {CHURN_AT[1][0]} "
+        f"of {steps}; {eng.replans} re-plans, plan cache {cache.misses} "
+        f"misses and {cache.hits} hits; plan while away on "
+        f"{sorted(away)}, after the return on "
+        f"{sorted(nodes)}; greedy tokens and launches {launches} equal to "
+        f"the run without churn; {tokens / wall:.1f} tok/s (without: "
+        f"{tokens / run['wall']:.1f}) [{smi}]")
+    log(f"{model.cfg.name} churn run host times: submit on a miss "
+        f"{submit_s[0] * 1e3:.3f} ms, median on a hit {hit_ms:.3f} ms; "
+        f"epoch re-plan on a miss {epoch_s[0] * 1e3:.3f} ms, on a hit "
+        f"{epoch_s[1] * 1e3:.3f} ms; recorder {len(rec.events)} events, "
+        f"engine.replan {replans}, fleet.membership {members} [{smi}]")
+    return dict(wall=wall, launches=launches, submit_s=submit_s,
+                epoch_s=epoch_s)
+
+
+def plan_elastic(smi: str) -> None:
+    """GPU-tier planning: an ``ElasticController`` on the H100 over
+    ``GPU_MULTI_NODE`` (two HGX hosts) for gemma-2b's ``train_4k`` cell,
+    its world driven by a ``FleetController`` over ``paper_cluster(2)``
+    replaying ``CHURN`` (2 -> 1 -> 2 hosts, 2 re-plans), then ``plan_gpu``
+    on every applicable cell of ``ARCH_IDS`` x the model ``SHAPES`` x
+    (``GPU_NODE``, ``GPU_MULTI_NODE``), one line each.  Planning runs on
+    the host: its seconds are host time on this machine, not a measure of
+    the card."""
+    rec = TelemetryRecorder("elastic")
+    ctl = ElasticController(build_model(get_config("gemma-2b")),
+                            CELLS["train_4k"], GPU_MULTI_NODE, chip=H100,
+                            telemetry=rec)
+    worlds = [ctl.initial_plan().mesh.n_pods]
+    fleet = FleetController(paper_cluster(2), ChurnTrace.scripted(CHURN),
+                            on_epoch=ctl.on_epoch, telemetry=rec)
+    for _, now in CHURN_AT:
+        fleet.advance(now)
+        worlds.append(ctl.current_plan.mesh.n_pods)
+    gauges = [e.value for e in rec.events if e.name == "elastic.world"]
+    if worlds != [2, 1, 2] or ctl.replans != 2 or gauges != [1.0, 2.0]:
+        raise AssertionError(f"elastic world {worlds} (gauges {gauges}) "
+                             f"after {ctl.replans} re-plans, expected "
+                             "[2, 1, 2] after 2")
+    log(f"elastic gemma-2b train_4k on {GPU_MULTI_NODE.shape} H100s: world "
+        f"{' -> '.join(map(str, worlds))} hosts, {ctl.replans} re-plans, "
+        f"plan {ctl.current_plan.local_layout} "
+        f"({ctl.current_plan.global_mode}-mode across hosts)")
+    cells = 0
+    for aid in ARCH_IDS:
+        model = build_model(get_config(aid))
+        for sname, shape in CELLS.items():
+            if not shape_applicable(model.cfg, shape)[0]:
+                continue
+            for mesh in (GPU_NODE, GPU_MULTI_NODE):
+                p = plan_gpu(model, shape, mesh)
+                d = p.predicted
+                if not p.local_layout or not d["total"] >= 0 or (
+                        d["fits"] and d["resident"] > 0.92 * H100.hbm_per_chip):
+                    raise AssertionError(f"plan_gpu {aid} {sname} "
+                                         f"{mesh.shape}: {p}")
+                cells += 1
+                log(f"  plan_gpu {aid:21s} {sname:11s} "
+                    f"{'x'.join(map(str, mesh.shape)):6s} "
+                    f"{p.global_mode}/{p.local_layout} {p.moe_impl}: "
+                    f"compute {d['compute'] * 1e3:.4g} ms, memory "
+                    f"{d['memory'] * 1e3:.4g} ms, collective "
+                    f"{d['collective'] * 1e3:.4g} ms, resident "
+                    f"{d['resident'] / 2**30:.2f} GiB, fits {d['fits']}, "
+                    f"planning {p.planning_seconds * 1e3:.3f} ms host "
+                    f"[{smi}]")
+    log(f"plan_gpu: {cells} cells planned")
+
+
 def serve(aid: str, n_requests: int, kernels, smi: str):
     """Seeded full-width bf16 weights for ``aid``, a warm-up engine run,
     then the counted run over ``n_requests`` prompts (numpy seed 0, 32..512
@@ -1581,13 +1760,16 @@ def main() -> int:
     log(f"moe grouped step vs dense oracle: {len(MOE_CASES)} cases, largest "
         f"max|err| {moe_err:.3e} within TOL {TOL[torch.bfloat16]}")
 
-    # 3. calibrate and plan: the kernel sweep calibrates the planner
+    # 3. calibrate and plan: the kernel sweep calibrates the planner; then
+    # GPU-tier planning and elasticity on the host
     plan = calibrate_and_plan(smi)
+    plan_elastic(smi)
 
     # 4. the serving paths at full width; gemma-2b also through the plan
     cfg, model, params, prompts, run = serve(
         "gemma-2b", N_REQUESTS, ("flash_attention", "decode_attention"), smi)
     serve_planned(model, params, prompts, run, plan, smi)
+    serve_churn(model, params, prompts, run, smi)
     err = check_prefill_then_decode(model, params, cfg, PTD_LIMIT[cfg.name])
     log(f"prefill-then-decode vs full forward (B=2, P=255): max|err| "
         f"{err:.3e} within {PTD_LIMIT[cfg.name]}")

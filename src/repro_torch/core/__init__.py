@@ -1,8 +1,10 @@
 """The port's copy of ``repro.core``, the paper's hardware-agnostic planner,
 as far as the serving and analyzer loop needs it: the cost model, block DAGs,
 objectives, fingerprints, the frontier DP at both tiers and the two-tier
-HiDP planner, plus the scheduler FSM states.  The baselines, simulator,
-edge-model zoo and cluster manager are not ported yet (``ROADMAP.md``)."""
+HiDP planner, the cluster manager (heartbeats, availability, leader
+election), the paper's edge-model zoo and Table II boards, plus the
+scheduler FSM states.  The baselines and simulator are not ported yet
+(``ROADMAP.md``)."""
 
 from .cost_model import (ANALYTIC, AnalyticCostProvider,  # noqa: F401
                          Cluster, CostProvider, Node, Processor, Resource,
@@ -25,3 +27,6 @@ from .local_partitioner import (LocalPlan, p1_plan, plan_local,  # noqa: F401
 from .hidp import (HiDPPlan, HiDPPlanner, PlannerConfig, plan,  # noqa: F401
                    plan_from_dict, plan_front, plan_to_dict, sub_dag_for)
 from .scheduler import State  # noqa: F401
+from .cluster import ClusterManager, HeartbeatMonitor  # noqa: F401
+from .edge_models import (EDGE_MODELS, MODEL_DELTA,  # noqa: F401
+                          battery_cluster, paper_cluster)

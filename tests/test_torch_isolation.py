@@ -50,6 +50,11 @@ PLANNER_MODULES = [f"repro_torch.core.{m}" for m in (
     "pareto")] + [f"repro_torch.profiling.{m}" for m in (
         "feedback", "learned", "profiler", "provider", "store")] + [
     "repro_torch.serving.plan_cache"]
+# the fleet, elasticity and GPU-tier planning layers the port copies
+FLEET_MODULES = [f"repro_torch.{m}" for m in (
+    "core.cluster", "core.edge_models", "fleet.traces", "fleet.controller",
+    "sharding.plan", "runtime.elastic", "telemetry.events",
+    "telemetry.recorder")]
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -62,7 +67,59 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED")[1].split()[0]) >= 50
     loaded = set(out.stdout.split("NAMES")[1].split())
-    assert set(PLANNER_MODULES) <= loaded, set(PLANNER_MODULES) - loaded
+    for mods in (PLANNER_MODULES, FLEET_MODULES):
+        assert set(mods) <= loaded, set(mods) - loaded
+
+
+# jax and repro cannot even be found: an import of either raises
+_PLAN_WITHOUT_JAX = """
+import sys
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"refused: {name}")
+
+
+sys.meta_path.insert(0, Refuse())
+from repro_torch.configs import get_config
+from repro_torch.core import paper_cluster
+from repro_torch.fleet import ChurnTrace, FleetController
+from repro_torch.models import SHAPES, build_model
+from repro_torch.runtime import ElasticController
+from repro_torch.sharding.plan import GPU_MULTI_NODE, GPU_NODE, plan_gpu
+from repro_torch.telemetry import TelemetryRecorder
+
+model = build_model(get_config("gemma-2b"))
+rec = TelemetryRecorder("elastic")
+ctl = ElasticController(model, SHAPES["train_4k"], GPU_MULTI_NODE,
+                        telemetry=rec)
+ctl.initial_plan()
+fleet = FleetController(paper_cluster(2), ChurnTrace.scripted(
+    [(1.0, "tx2", "leave"), (2.0, "tx2", "join")]), on_epoch=ctl.on_epoch,
+    telemetry=rec)
+worlds = []
+for now in (1.5, 2.5):
+    fleet.advance(now)
+    worlds.append(ctl.current_plan.mesh.n_pods)
+print("WORLDS", *worlds, ctl.replans, len(rec.events))
+print("NODE", plan_gpu(model, SHAPES["decode_32k"], GPU_NODE).local_layout)
+print("BAD", sorted(n for n in sys.modules
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_gpu_planning_and_fleet_run_where_jax_and_repro_cannot_import():
+    """``plan_gpu``, ``ElasticController``, ``FleetController`` and the
+    recorder import and run with jax and ``repro`` refused at import."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _PLAN_WITHOUT_JAX], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "WORLDS 1 2 2 6" in out.stdout, out.stdout
+    assert "NODE dp_tp" in out.stdout and "BAD []" in out.stdout, out.stdout
 
 
 def _needs_no_gpu():

@@ -2,10 +2,11 @@
 engine (CPU), greedy-token parity with the JAX engine on the same weights,
 and the serving CLI.
 
-The engine takes its PlanCache, FeedbackLoop and FleetController as
-objects and never imports their classes: most tests hand it the JAX
-package's (pure Python), and two hand it the port's own PlanCache and
-FeedbackLoop.
+The engine takes its PlanCache, FeedbackLoop, FleetController and
+telemetry recorder as objects and never imports their classes: most tests
+hand it the JAX package's (pure Python); three hand it the port's own
+PlanCache, with its FeedbackLoop or with its FleetController and
+TelemetryRecorder on the churn path.
 """
 
 import os
@@ -386,9 +387,20 @@ def test_engine_emits_the_jax_engines_greedy_tokens(small_lm, jax_lm):
     jids = [jeng.submit(p, max_new_tokens=n_new) for p in prompts]
     ids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
     jdone, done = jeng.run_until_done(), eng.run_until_done()
+    compared = _greedy_parity(jax_lm, prompts, [jdone[i] for i in jids],
+                              [done[i] for i in ids], n_new)
+    # the rule above may stop a sequence early, but most steps compare
+    assert compared >= len(prompts) * n_new // 2
+
+
+def _greedy_parity(jax_lm, prompts, jreqs, reqs, n_new) -> int:
+    """Hold each port request's greedy tokens to the JAX request's, up to
+    the first step where they part at a JAX top-1/top-2 margin under 5e-2;
+    returns the number of tokens compared."""
+    jmodel, jparams = jax_lm
     compared = 0
-    for p, jid, rid in zip(prompts, jids, ids):
-        want, got = jdone[jid].generated, done[rid].generated
+    for p, jreq, req in zip(prompts, jreqs, reqs):
+        want, got = jreq.generated, req.generated
         assert len(got) == len(want) == n_new
         for i, (g, w) in enumerate(zip(got, want)):
             if g != w:
@@ -399,8 +411,116 @@ def test_engine_emits_the_jax_engines_greedy_tokens(small_lm, jax_lm):
                 assert margin < 5e-2, (i, g, w, margin)
                 break
             compared += 1
-    # the rule above may stop a sequence early, but most steps compare
-    assert compared >= len(prompts) * n_new // 2
+    return compared
+
+
+def _churn_run(pkg, engine, prompts, n_new):
+    """The membership-epoch test's churn path on one package's objects:
+    a ``PlanCache`` over ``battery_cluster()`` keyed on the membership of a
+    ``FleetController`` replaying tx2's leave and return, the epochs wired
+    to ``on_membership_change``, one recorder for all three.  The fleet
+    advances only between engine steps."""
+    rec = pkg.TelemetryRecorder("churn")
+    cluster = pkg.battery_cluster()
+    fleet = pkg.FleetController(cluster, pkg.ChurnTrace.scripted(
+        [(1.0, "tx2", "leave"), (2.0, "tx2", "join")]), telemetry=rec)
+    cache = pkg.PlanCache(pkg.HiDPPlanner(pkg.PlannerConfig(
+        objective=pkg.Objective("energy", radio_power=4.0))), cluster,
+        membership_source=fleet, telemetry=rec)
+    eng = engine(max_batch=2, max_len=32, plan_cache=cache,
+                 default_dag=pkg.dag, telemetry=rec)
+    fleet.on_epoch = eng.on_membership_change
+    rids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    seen = [(cache.misses, cache.hits)]
+    for now in (None, 1.5, None, 2.5):
+        if now is not None:
+            fleet.advance(now)
+            nodes = {a.node.name for a in eng.plan.global_plan.assignments}
+            seen.append((now, eng.replans, cache.misses, cache.hits,
+                         "tx2" in nodes))
+        eng.step()
+    done = eng.run_until_done()
+    return dict(reqs=[done[r] for r in rids], seen=seen, replans=eng.replans,
+                misses=cache.misses, hits=cache.hits,
+                events=[e.canonical() for e in rec.events],
+                counters=[(e.name, e.epoch, e.attrs.get("resolved"))
+                          for e in rec.events if e.kind == "counter"])
+
+
+def test_churn_path_on_the_ports_objects_equals_the_jax_engine(small_lm,
+                                                               jax_lm):
+    """The membership-epoch test on the port's ``FleetController``,
+    ``PlanCache``, ``battery_cluster`` and ``TelemetryRecorder`` against the
+    JAX package's objects under the same trace: the same re-plans, misses
+    and hits at every epoch (tx2 absent from the plan while away, the warm
+    return free), the same greedy tokens, and the same recorder events in
+    canonical projection."""
+    import types
+
+    import repro.core as jcore
+    import repro.fleet as jfleet
+    import repro.serving as jserving
+    import repro.telemetry as jtelemetry
+    import repro_torch.core as core
+    import repro_torch.fleet as fleet
+    import repro_torch.telemetry as telemetry
+    from repro_torch.core.dag import Block, ModelDAG
+    from repro_torch.serving.plan_cache import PlanCache
+    from test_torch_planner import toy_dag
+
+    def pkg(core, fleet, telemetry, cache_cls, dag):
+        return types.SimpleNamespace(
+            TelemetryRecorder=telemetry.TelemetryRecorder,
+            battery_cluster=core.battery_cluster,
+            FleetController=fleet.FleetController,
+            ChurnTrace=fleet.ChurnTrace, PlanCache=cache_cls,
+            HiDPPlanner=core.HiDPPlanner, PlannerConfig=core.PlannerConfig,
+            Objective=core.Objective, dag=dag)
+
+    cfg, model, params = small_lm
+    jmodel, jparams = jax_lm
+    prompts = [np.asarray([1, 2], np.int32), np.asarray([7, 3, 9], np.int32)]
+    n_new = 6
+    ours = _churn_run(pkg(core, fleet, telemetry, PlanCache,
+                          toy_dag(Block, ModelDAG)),
+                      lambda **kw: _engine(model, params, **kw), prompts,
+                      n_new)
+    theirs = _churn_run(pkg(jcore, jfleet, jtelemetry, jserving.PlanCache,
+                            toy_dag()),
+                        lambda **kw: JServingEngine(jmodel, jparams, **kw),
+                        prompts, n_new)
+    # two submits: one cold pass and a hit; tx2 leaves: one pass for the
+    # new membership, a plan without tx2; tx2 returns: a warm hit
+    assert ours["seen"] == [(1, 1), (1.5, 1, 2, 1, False),
+                            (2.5, 2, 2, 2, True)]
+    for k in ("seen", "replans", "misses", "hits", "counters", "events"):
+        assert ours[k] == theirs[k], k
+    assert [c for c in ours["counters"] if c[0] == "engine.replan"] == [
+        ("engine.replan", 1, None), ("engine.replan", 2, None)]
+    assert _greedy_parity(jax_lm, prompts, theirs["reqs"], ours["reqs"],
+                          n_new) >= n_new
+
+
+def test_chip_smokes_churn_phase_runs_on_the_cpu(small_lm, monkeypatch):
+    """``chip_smoke.serve_churn``'s wiring and checks, on the CPU at the
+    reduced size (the engine on ``cpu``, syncs as no-ops, a 64-position
+    cache): it raises on any failed check."""
+    import functools
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    cfg, model, params = small_lm
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "ServingEngine", functools.partial(
+        ServingEngine, device="cpu"))
+    monkeypatch.setattr(chip_smoke, "MAX_LEN", 64)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(4, 20, size=8)]
+    run = chip_smoke.drive_main_path(model, params, prompts)
+    out = chip_smoke.serve_churn(model, params, prompts, run, "cpu")
+    assert len(out["epoch_s"]) == 2 and len(out["submit_s"]) == 8
 
 
 def test_serve_cli_runs_on_cpu():
