@@ -7,11 +7,11 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit.  Imports nothing of jax and nothing of the JAX package.  Phases,
 each of which exits non-zero when it fails:
 
-1. the card (``nvidia-smi`` name and power limit); the three kernels are
-   built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
+1. the card (``nvidia-smi`` name and power limit); the four kernels
+   (flash attention, its backward, decode attention, SSD) are built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
    parallel), and ptxas's registers and spill bytes are logged per
    instantiation (a tensor-core instantiation that spills fails: bf16
-   attention, the TF32 SSD pass);
+   attention forward and backward, the TF32 SSD pass);
 2. each CUDA kernel against its plain PyTorch version on the card: the shape
    lists of ``tests/test_kernels.py`` (attention in fp32 and bf16 at its
    ``TOL``, the SSD pass and the whole scan at its atol 1e-4), then the
@@ -95,9 +95,23 @@ each of which exits non-zero when it fails:
    the stream behind a sleep kernel, so the host's enqueue is not in them
    (the attention lines also give the time with it).  Cross-attention is
    timed the same way: flash at the VLM's 441 x 1601 and whisper's
-   441 x 220, decode over 1601 and 512 rows.
+   441 x 220, decode over 1601 and 512 rows; the flash backward at
+   gemma-2b's training shape beside SDPA's backward;
+6. (run before the times) the training slice: the flash backward kernel
+   against ``ref.attention_bwd_naive`` (with the forward's LSE against
+   ``ref.attention_lse_naive``) on the reference's shape list in fp32 and
+   bf16 and at gemma-2b's training shape, B=2, T=1024 (checked with the
+   other kernels in phase 2); ``repro_torch.launch.train`` at its defaults
+   (reduced gemma-2b, 200 steps: the loss falls, checkpoints every 50
+   steps) and a second run resuming from its last checkpoint; gemma-2b at
+   full width and 2 layers, loss and gradients through the kernels against
+   attention on the plain version; gemma-2b at full width and depth, 5
+   steps of ``make_train_step`` (remat, chunked CE, fp32 AdamW state):
+   exactly 36 forward and 18 backward flash calls a step, step ms,
+   tokens/s, peak memory and the device-busy share of one step.
 
-The last two lines are the ``{"kernels": [...]}`` record and
+The last two lines are the ``{"kernels": [...]}`` record (four kernels)
+and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -107,6 +121,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -129,6 +144,7 @@ from repro_torch.fleet import ChurnTrace, FleetController  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import ShapeConfig, build_model  # noqa: E402
 from repro_torch.models import SHAPES as CELLS  # noqa: E402
 from repro_torch.models import shape_applicable  # noqa: E402
@@ -142,8 +158,13 @@ from repro_torch.runtime import ElasticController  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.plan_cache import PlanCache  # noqa: E402
 from repro_torch.sharding.plan import (GPU_MULTI_NODE, GPU_NODE,  # noqa: E402
-                                       H100, plan_gpu)
+                                       H100, ShardingPlan, plan_gpu)
 from repro_torch.telemetry import TelemetryRecorder  # noqa: E402
+from repro_torch.training import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.training import optimizer as train_optim  # noqa: E402
+from repro_torch.training import train_loop  # noqa: E402
+from repro_torch.training import tree as train_tree  # noqa: E402
+from repro_torch.training.data import SyntheticDataset  # noqa: E402
 
 # tests/test_kernels.py's lists (that module imports jax); a CPU test holds
 # these copies equal to it.
@@ -661,7 +682,7 @@ PTD_LIMIT = {"gemma-2b": 1e-1, "mamba2-780m": 2e-1, QWEN3: 2e-1,
 
 
 OUR_KERNELS = ("flash_bf16", "flash_f32", "decode_split", "decode_combine",
-               "ssd_intra_chunk_kernel")
+               "ssd_intra_chunk_kernel", "bwd_delta", "bwd_dkdv", "bwd_dq")
 
 
 def _profile(fn, reps: int) -> dict | None:
@@ -1700,11 +1721,312 @@ def time_moe_layer(t: int, smi: str) -> None:
     del p, x, xs
 
 
+# --------------------------------------------------------------------------
+# Training: the backward kernel, the trainer CLI, gemma-2b at full width
+# --------------------------------------------------------------------------
+
+# gemma-2b's training shape: a batch of 2 sequences of 1024 tokens
+TRAIN_B, TRAIN_T = 2, 1024
+TRAIN_STEPS = 5
+GRAD_CHECK_LAYERS = 2
+# the backward kernel against ref.attention_bwd_naive, both from the same
+# forward output and LSE: fp32 sums run in another order over up to Tq
+# query rows (dK, dV) or Tk keys (dQ); in bf16 the kernel also rounds P and
+# dS to bf16 for their products (the plain version keeps them fp32), and
+# both round dQ/dK/dV once
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# one full-width train step through the kernels against the same step with
+# attention on the plain versions (autograd of ref.attention_naive), leaf by
+# leaf in relative norm: the wgmma forward rounds P to bf16 for its PV
+# product and takes exp2 on ex2.approx, where the plain version keeps fp32
+GRAD_CHECK_TOL = 5e-2
+
+
+def _counts() -> dict:
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches}
+
+
+def _zero_counts() -> None:
+    fa.launches = fa.bwd_launches = 0
+
+
+def check_flash_bwd(b, tq, tk, hq, hkv, d, win, caus, dtype, lens, seed,
+                    tag) -> float:
+    """The forward's LSE and output against ``ref.attention_lse_naive``
+    (``TOL``), then dQ/dK/dV of the backward kernel against
+    ``ref.attention_bwd_naive`` from the kernel's own output and LSE
+    (``BWD_TOL``); returns the backward's largest error."""
+    args, kw = flash_case(b, tq, tk, hq, hkv, d, win, caus, dtype, lens,
+                          seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5000)
+    do = _randn((b, tq, hq, d), dtype, gen)
+    o, lse = fa.flash_attention_fwd(*args, with_lse=True, **kw)
+    want_o, want_lse = ref.attention_lse_naive(*args, **kw)
+    _check(f"flash out {tag}", o, want_o, TOL[dtype])
+    _check(f"flash lse {tag}", lse, want_lse, TOL[dtype])
+    got = fa.flash_attention_bwd(*args, o, lse, do, **kw)
+    want = ref.attention_bwd_naive(*args, o, lse, do, **kw)
+    return max(_check(f"flash bwd {tag} d{n}", g, w, BWD_TOL[dtype])
+               for n, g, w in zip("qkv", got, want))
+
+
+def check_backward() -> float:
+    """The backward kernel on the reference's shape list in fp32 and bf16,
+    and at gemma-2b's training shape (B=2, T=1024, causal, 8 heads over 1,
+    D=256, every key valid, as training calls it) in bf16 and fp32; returns
+    the largest error at the training shape in bf16."""
+    worst = {dt: 0.0 for dt in TOL}
+    for i, (b, tq, tk, hq, hkv, d, win, caus, _, _) in enumerate(SHAPES):
+        for dtype in TOL:
+            lens = [tk] + [max(tk * 2 // 3, 1)] * (b - 1)
+            err = check_flash_bwd(b, tq, tk, hq, hkv, d, win, caus, dtype,
+                                  lens, 1500 + i, f"{SHAPES[i]} {dtype}")
+            worst[dtype] = max(worst[dtype], err)
+    log(f"flash backward vs plain, reference shape list: {2 * len(SHAPES)} "
+        f"cases; largest max|err| fp32 {worst[torch.float32]:.3e} (tol "
+        f"{BWD_TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} (tol "
+        f"{BWD_TOL[torch.bfloat16]})")
+    train = {}
+    for dtype in TOL:
+        train[dtype] = check_flash_bwd(
+            TRAIN_B, TRAIN_T, TRAIN_T, HQ, HKV, HD, None, True, dtype,
+            [TRAIN_T] * TRAIN_B, 1600, f"gemma-2b training {dtype}")
+        log(f"  flash bwd gemma-2b training B={TRAIN_B} T={TRAIN_T} "
+            f"{dtype}: max|err| {train[dtype]:.3e} (tol {BWD_TOL[dtype]})")
+    torch.cuda.synchronize()
+    return train[torch.bfloat16]
+
+
+def time_flash_bwd(flush) -> dict:
+    """The backward at gemma-2b's training shape: kernel, plain version and
+    SDPA's backward (autograd through ``scaled_dot_product_attention``, the
+    graph kept, only the backward timed), device ms.  Its least work: the
+    five products (S, dP, dV, dQ, dK), 2 D FLOPs each per causal (query,
+    key) pair and head; bytes: q, k, v, o, dO read once and dq, dk, dv
+    written once in bf16, the LSE in fp32."""
+    args, kw = flash_case(TRAIN_B, TRAIN_T, TRAIN_T, HQ, HKV, HD, None, True,
+                          torch.bfloat16, [TRAIN_T] * TRAIN_B, 1700)
+    q, k, v = args
+    gen = torch.Generator(device="cuda").manual_seed(1701)
+    do = _randn(q.shape, torch.bfloat16, gen)
+    o, lse = fa.flash_attention_fwd(*args, with_lse=True, **kw)
+    pairs = TRAIN_B * TRAIN_T * (TRAIN_T + 1) / 2
+    flops = 10.0 * HQ * HD * pairs
+    nbytes = 2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel()
+    bound, by = _bound(flops, nbytes)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in args)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    return dict(
+        **_times(lambda: fa.flash_attention_bwd(*args, o, lse, do, **kw),
+                 lambda: ref.attention_bwd_naive(*args, o, lse, do, **kw),
+                 lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                             retain_graph=True), flush),
+        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+
+
+def run_trainer(smi: str) -> None:
+    """``repro_torch.launch.train`` at its defaults on the card (reduced
+    gemma-2b, d_model 256, 8 layers, 200 steps of 8 x 256, a checkpoint every
+    50 steps): the loss must fall (the CLI's own check) and the last
+    checkpoint be step 200.  A second run over the same directory with 400
+    steps must resume there and end at step 600."""
+    with tempfile.TemporaryDirectory() as d:
+        _zero_counts()
+        first = train_cli.main(["--ckpt-dir", d])
+        counts = _counts()
+        latest = train_ckpt.latest(d)
+        if first["step"] != 200 or not latest or \
+                not latest.endswith("ckpt_00000200.msgpack"):
+            raise AssertionError(f"trainer ended at step {first['step']}, "
+                                 f"last checkpoint {latest}")
+        if counts["flash_attention"] != 200 * 16 or \
+                counts["flash_attention_bwd"] != 200 * 8:
+            raise AssertionError(f"trainer launches {counts}, expected "
+                                 "16 forward and 8 backward a step")
+        log(f"trainer (defaults): 200 steps of 8 x 256 in "
+            f"{first['seconds']:.2f} s = "
+            f"{8 * 256 * 200 / first['seconds']:.0f} tok/s; loss first5 "
+            f"{[round(x, 3) for x in first['first5']]} last5 "
+            f"{[round(x, 3) for x in first['last5']]}; checkpoints "
+            f"{sorted(os.listdir(d))}; launches {counts} [{smi}]")
+        second = train_cli.main(["--ckpt-dir", d, "--steps", "400"])
+        if second["step"] != 600 or second["steps_run"] != 400:
+            raise AssertionError(f"the resumed run ended at step "
+                                 f"{second['step']} after "
+                                 f"{second['steps_run']} steps")
+        log(f"trainer resumed from step 200: 400 more steps to step "
+            f"{second['step']} in {second['seconds']:.2f} s; loss first5 "
+            f"{[round(x, 3) for x in second['first5']]} last5 "
+            f"{[round(x, 3) for x in second['last5']]}")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """``ops.flash_attention`` on the plain version (torch's autograd of
+    ``ref.attention_naive``) for the comparison run only."""
+    kernel = ops.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=None, q_offset=0,
+              lengths=None, **_):
+        return ref.attention_naive(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, lengths=lengths)
+
+    ops.flash_attention = plain
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def _train_batch(cfg, seed: int) -> dict:
+    batch = next(iter(SyntheticDataset(cfg, TRAIN_B, TRAIN_T, seed=seed)))
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def _loss_and_grads(model, params, batch):
+    ps = train_tree.map(lambda p: p.detach().requires_grad_(True), params)
+    loss = train_loop.loss_fn(model, ps, batch)
+    grads = torch.autograd.grad(loss, train_tree.leaves(ps))
+    return loss.detach(), grads
+
+
+def check_train_grads(smi: str) -> float:
+    """gemma-2b at full width and ``GRAD_CHECK_LAYERS`` layers: loss and
+    gradients of ``loss_fn`` (remat, chunked CE) through the kernels
+    against the same with attention on the plain version; returns the
+    worst leaf's relative-norm error."""
+    cfg = dataclasses.replace(get_config("gemma-2b"),
+                              n_layers=GRAD_CHECK_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    batch = _train_batch(cfg, 1)
+    _zero_counts()
+    loss, grads = _loss_and_grads(model, params, batch)
+    counts = _counts()
+    want = {"flash_attention": 2 * GRAD_CHECK_LAYERS,
+            "flash_attention_bwd": GRAD_CHECK_LAYERS}
+    if counts != want:
+        raise AssertionError(f"gradient check launches {counts}, expected "
+                             f"{want}")
+    with plain_attention():
+        ploss, pgrads = _loss_and_grads(model, params, batch)
+    if _counts() != want:
+        raise AssertionError("the plain run launched a flash kernel")
+    errs = [float((g.float() - w.float()).norm() / w.float().norm())
+            for g, w in zip(grads, pgrads)]
+    lerr = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    if not all(np.isfinite(errs)) or max(errs) > GRAD_CHECK_TOL or \
+            lerr > 1e-2:
+        raise AssertionError(f"kernel vs plain gradients: loss rel "
+                             f"{lerr:.3e}, leaves {errs}")
+    log(f"gemma-2b full width, {GRAD_CHECK_LAYERS} layers, B={TRAIN_B} "
+        f"T={TRAIN_T}: loss {float(loss):.5f} through the kernels, "
+        f"{float(ploss):.5f} on the plain version (rel {lerr:.2e}); "
+        f"{len(errs)} gradient leaves, worst relative-norm error "
+        f"{max(errs):.3e} (tol {GRAD_CHECK_TOL}); launches {counts} [{smi}]")
+    del params, grads, pgrads
+    return max(errs)
+
+
+def train_full_depth(smi: str) -> dict:
+    """gemma-2b at full width and depth (18 layers, 2.506 B parameters,
+    fp32 with fp32 AdamW state): ``TRAIN_STEPS`` steps of
+    ``make_train_step`` (remat on, B=2, T=1024) on ``SyntheticDataset``,
+    exact launches per step (a forward call per layer and per remat
+    recompute, a backward call per layer), then one more step under the
+    profiler for the device-busy share.  Returns the step's numbers."""
+    cfg = get_config("gemma-2b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    opt = train_optim.init(params)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in train_tree.leaves(params))
+    log(f"gemma-2b training: {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 "
+        f"parameters, AdamW state fp32, init {time.perf_counter() - t0:.1f}"
+        f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    plan = ShardingPlan(arch=cfg.name, shape="train", mesh=GPU_NODE,
+                        global_mode="data", local_layout="single",
+                        batch_axes=(), remat=True)
+    # the reference's OptConfig defaults (lr 3e-4 after 100 warm-up steps)
+    step = train_loop.make_train_step(model, train_optim.OptConfig(), plan)
+    data = iter(SyntheticDataset(cfg, TRAIN_B, TRAIN_T, seed=2))
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, total = [], [], {k: 0 for k in want}
+    for _ in range(TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in next(data).items()}
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = _counts()
+        if counts != want:
+            raise AssertionError(f"train step launches {counts}, expected "
+                                 f"{want}")
+        for k in total:
+            total[k] += counts[k]
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(data).items()}
+    state = [params, opt]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    r = _profile(one_step, 1)
+    busy = None if r is None else r["device_ms"] / r["wall_ms"]
+    log(f"gemma-2b train step (B={TRAIN_B}, T={TRAIN_T}, remat, chunked CE):"
+        f" {TRAIN_STEPS} steps, median {1e3 * med:.1f} ms "
+        f"(steps {[round(1e3 * t, 1) for t in times]} ms) = "
+        f"{TRAIN_B * TRAIN_T / med:.0f} tok/s; losses "
+        f"{[round(x, 4) for x in losses]}; peak {peak:.2f} GiB; launches "
+        f"per step {want} [{smi}]")
+    log(f"gemma-2b train step: {_profiled(one_step, 1, 'train step', r)} "
+        f"[{smi}]")
+    if r is not None:
+        top = sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:12]
+        log("gemma-2b train step, device ms by kernel: " + "; ".join(
+            f"{k[:70]} {v:.3f}" for k, v in top))
+    del params, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms=1e3 * med, tok_s=TRAIN_B * TRAIN_T / med,
+                peak_gib=peak, busy=busy, launches=total)
+
+
+def train_phases(smi: str) -> dict:
+    """The training slice's main path: the trainer CLI, the full-width
+    gradient check and the full-depth run.  Returns the full-depth run's
+    launch counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_trainer(smi)
+    check_train_grads(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train_full_depth(smi)["launches"]
+
+
 # the tensor-core instantiations, which must not spill (their accumulators
-# live in registers): bf16 attention, and every instantiation of the SSD
-# pass (3xTF32)
+# live in registers): bf16 attention and its backward, and every
+# instantiation of the SSD pass (3xTF32)
 TENSOR_CORE_KERNELS = ("flash_bf16", "decode_split_bf16",
-                       "ssd_intra_chunk_kernel")
+                       "ssd_intra_chunk_kernel", "bwd_dkdv_tc", "bwd_dq_tc")
 
 
 def log_ptxas(kname: str, report: str) -> None:
@@ -1756,6 +2078,7 @@ def main() -> int:
     # 2. kernels against their plain versions; the grouped MoE step against
     # the dense oracle
     worst = check_kernels()
+    worst["flash_attention_bwd"] = check_backward()
     moe_err = check_moe()
     log(f"moe grouped step vs dense oracle: {len(MOE_CASES)} cases, largest "
         f"max|err| {moe_err:.3e} within TOL {TOL[torch.bfloat16]}")
@@ -1813,6 +2136,11 @@ def main() -> int:
     serve_qwen3(smi)
     check_mixtral(smi)
 
+    # the training slice: the trainer CLI, the full-width gradient check
+    # and gemma-2b's full-depth train steps (through the backward kernel)
+    launches["flash_attention_bwd"] = \
+        train_phases(smi)["flash_attention_bwd"]
+
     # 5. times at the main path's shapes
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = {}
@@ -1850,6 +2178,10 @@ def main() -> int:
             f"{r['flops'] / 1e9:.3f} GFLOP fp32 as 3xTF32, "
             f"{r['bytes'] / 1e6:.2f} MB) [{smi}]")
         records.setdefault("ssd_intra_chunk", r)
+    r = time_flash_bwd(None)          # its inputs just produced: warm
+    log(_time_line(f"flash backward gemma-2b training B={TRAIN_B} "
+                   f"T={TRAIN_T} (library: sdpa's backward)", r, smi))
+    records["flash_attention_bwd"] = r
     for t in (4, RAGGED_PREFILL[0]):
         time_moe_layer(t, smi)
     log(f"kernels: {list(_build.KERNELS)}")
@@ -1861,9 +2193,13 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:104"),
         "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
-                            "src/repro/kernels/ssd_scan.py:69")}
+                            "src/repro/kernels/ssd_scan.py:69"),
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:134")}
     # launches: the attention kernels' from the gemma-2b run, the SSD
-    # kernel's from the mamba2-780m run (hymba-1.5b's are logged above)
+    # kernel's from the mamba2-780m run (hymba-1.5b's are logged above),
+    # the backward's from gemma-2b's full-depth train steps
     kernels = []
     for kname in _build.KERNELS:
         r = records[kname]

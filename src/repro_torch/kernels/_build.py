@@ -22,7 +22,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("flash_attention", "decode_attention", "ssd_intra_chunk")
+KERNELS = ("flash_attention", "decode_attention", "ssd_intra_chunk",
+           "flash_attention_bwd")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -10,16 +10,18 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NO_WINDOW = 2 ** 30
 
 
-def check_no_grad(what: str, *inputs: torch.Tensor) -> None:
-    """Raises where autograd would need the kernel's gradient: its output is
-    filled through ctypes and carries no ``grad_fn``, so a backward pass
-    through it would drop the gradient of every input without a word.
-    Checked before the device, so that a CPU tensor shows it too."""
+def check_no_grad(what: str, lifted_by: str, *inputs: torch.Tensor) -> None:
+    """Raises where autograd would need a kernel's gradient that the port
+    does not have: the output is filled through ctypes and carries no
+    ``grad_fn``, so a backward pass through it would drop the gradient of
+    every input without a word.  ``lifted_by`` names the work that would
+    give the kernel its backward.  Checked before the device, so that a CPU
+    tensor shows it too.  (Flash attention has its backward kernel.)"""
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         raise RuntimeError(
             f"{what}: an input requires grad, and the CUDA kernel has no "
-            "backward pass; its differentiable route comes with the training "
-            "slice (run the forward under torch.no_grad() to serve)")
+            f"backward pass; {lifted_by} (run the forward under "
+            "torch.no_grad() to serve)")
 
 
 def check_bthd(name: str, x: torch.Tensor, dtype: torch.dtype,

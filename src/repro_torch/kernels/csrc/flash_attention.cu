@@ -40,6 +40,13 @@
 //     head do, and one head's K/V lives in L2;
 //   * fp32 keeps the scalar CUDA-core tile of attention_tile.cuh, 16 query
 //     rows per block: tensor cores would not hold the fp32 tolerance.
+//
+// Training: where `lse` is not null, both kernels also write each row's
+// log-sum-exp of its scaled scores over its valid keys, fp32 (B, Hq, Tq), in
+// natural-log units whatever the kernel's own (the wgmma kernel keeps its
+// running max and sum in log2 units and converts once, ln 2 (m + log2 l));
+// NEG_INF for a row with no valid key.  flash_attention_bwd.cu reads it as
+// P = exp(S * scale - lse).  The serving path passes null and writes none.
 
 #include "attention_tile.cuh"
 
@@ -53,7 +60,8 @@ template <int D>
 __global__ void __launch_bounds__(attn::NT)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
-          const int* __restrict__ lengths, int Tq, int Tk, int Hq, int G,
+          float* __restrict__ lse, const int* __restrict__ lengths, int Tq,
+          int Tk, int Hq, int G,
           long long q_sb, long long q_st, long long k_sb, long long k_st,
           long long v_sb, long long v_st, int causal, int q_offset,
           int window, float scale) {
@@ -94,6 +102,10 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   float* ob = o + ((long long)b * Tq + q0) * Hq * D + (long long)h * D;
   attn::store_rows<D>(sm, ob, (long long)Hq * D, nq);
+  if (lse)
+    for (int r = threadIdx.x; r < nq; r += attn::NT)
+      lse[((long long)b * Hq + h) * Tq + q0 + r] =
+          sm.l[r] > 0.f ? sm.m[r] + logf(sm.l[r]) : attn::NEG_INF;
 }
 
 // ---- bf16: wgmma -----------------------------------------------------------
@@ -103,6 +115,7 @@ constexpr int BN = 64;               // keys per kv tile
 constexpr int NWG = 2;               // warpgroups, each on every other tile
 constexpr int NTB = NWG * attn::NT;  // threads per block
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct WgCfg {
@@ -122,7 +135,8 @@ __global__ void __launch_bounds__(NTB, 1)
 flash_bf16(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-           const int* __restrict__ lengths, int Tq, int Tk, int Hq, int G,
+           float* __restrict__ lse, const int* __restrict__ lengths, int Tq,
+           int Tk, int Hq, int G,
            long long q_sb, long long q_st, long long k_sb, long long k_st,
            long long v_sb, long long v_st, int causal, int q_offset,
            int window, float scale) {
@@ -316,8 +330,12 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
     const float mm = fmaxf(m[r], m1);
     const float c0 = ptx::exp2_approx(m[r] - mm);
     const float c1 = ptx::exp2_approx(m1 - mm);
-    const float inv = 1.f / fmaxf(l[r] * c0 + l1 * c1, 1e-30f);
+    const float lsum = l[r] * c0 + l1 * c1;
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
     if (row >= nq) continue;
+    if (lse && t == 0)  // natural log: ln 2 * (m + log2 l), m in log2 units
+      lse[((long long)b * Hq + h) * Tq + q0 + row] =
+          lsum > 0.f ? (mm + log2f(lsum)) * LN2 : attn::NEG_INF;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int c = 8 * j + 2 * t;
@@ -333,7 +351,8 @@ flash_bf16(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const void* lengths, int B, int Tq, int Tk, int Hq, int Hkv,
+               void* lse, const void* lengths, int B, int Tq, int Tk,
+               int Hq, int Hkv,
                long long q_sb, long long q_st, long long k_sb, long long k_st,
                long long v_sb, long long v_st, int causal, int q_offset,
                int window, float scale, cudaStream_t stream) {
@@ -344,14 +363,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_f32<D><<<grid, attn::NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<const int*>(lengths), Tq, Tk, Hq, Hq / Hkv, q_sb, q_st,
-      k_sb, k_st, v_sb, v_st, causal, q_offset, window, scale);
+      static_cast<float*>(lse), static_cast<const int*>(lengths), Tq, Tk,
+      Hq, Hq / Hkv, q_sb, q_st, k_sb, k_st, v_sb, v_st, causal, q_offset,
+      window, scale);
   return int(cudaGetLastError());
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const void* lengths, int B, int Tq, int Tk, int Hq, int Hkv,
+                void* lse, const void* lengths, int B, int Tq, int Tk,
+               int Hq, int Hkv,
                 long long q_sb, long long q_st, long long k_sb, long long k_st,
                 long long v_sb, long long v_st, int causal, int q_offset,
                 int window, float scale, cudaStream_t stream) {
@@ -362,8 +383,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_bf16<D><<<grid, NTB, WgCfg<D>::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<const int*>(lengths), Tq, Tk, Hq, Hq / Hkv, q_sb, q_st,
-      k_sb, k_st, v_sb, v_st, causal, q_offset, window, scale);
+      static_cast<float*>(lse), static_cast<const int*>(lengths), Tq, Tk,
+      Hq, Hq / Hkv, q_sb, q_st, k_sb, k_st, v_sb, v_st, causal, q_offset,
+      window, scale);
   return int(cudaGetLastError());
 }
 
@@ -371,13 +393,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head and
 // feature axes must be dense (stride D and 1).  `o` is a dense
-// (B,Tq,Hq,D) tensor.  `lengths` may be null: every key is valid (the
-// encoder's and the cross-attention's calls), and no lengths tensor has to
-// be made and copied to the card for them.  Returns cudaGetLastError()
+// (B,Tq,Hq,D) tensor; `lse`, null or a dense fp32 (B,Hq,Tq) tensor, gets
+// each row's log-sum-exp (see the top).  `lengths` may be null: every key
+// is valid (the encoder's and the cross-attention's calls), and no lengths
+// tensor has to be made and copied to the card for them.  Returns cudaGetLastError()
 // after the launch.
 extern "C" int flash_attention_fwd(
     int dtype, int D, const void* q, const void* k, const void* v, void* o,
-    const void* lengths, int B, int Tq, int Tk, int Hq, int Hkv,
+    void* lse, const void* lengths, int B, int Tq, int Tk, int Hq, int Hkv,
     long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, int causal, int q_offset, int window,
     float scale, void* stream) {
@@ -386,11 +409,11 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     ATTN_DISPATCH_D(D, return launch_f32<D>(
-        q, k, v, o, lengths, B, Tq, Tk, Hq, Hkv, q_sb, q_st, k_sb, k_st,
+        q, k, v, o, lse, lengths, B, Tq, Tk, Hq, Hkv, q_sb, q_st, k_sb, k_st,
         v_sb, v_st, causal, q_offset, window, scale, st))
   } else if (dtype == 1) {
     ATTN_DISPATCH_D(D, return launch_bf16<D>(
-        q, k, v, o, lengths, B, Tq, Tk, Hq, Hkv, q_sb, q_st, k_sb, k_st,
+        q, k, v, o, lse, lengths, B, Tq, Tk, Hq, Hkv, q_sb, q_st, k_sb, k_st,
         v_sb, v_st, causal, q_offset, window, scale, st))
   }
   return int(cudaErrorInvalidValue);

@@ -67,7 +67,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     entries.  Returns (B, 1, Hq, D) in q's dtype.  Semantics of
     ``repro.kernels.ref.decode_attention_naive``."""
     global launches
-    check_no_grad("decode_attention", q, k_cache, v_cache)
+    check_no_grad("decode_attention",
+                  "no training slice needs one: training attends over whole "
+                  "sequences through flash attention", q, k_cache, v_cache)
     w = check_common(q, window)
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         check_bthd(name, x, q.dtype, q.device)

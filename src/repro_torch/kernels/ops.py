@@ -4,10 +4,13 @@ The tensor's device picks the path:
 
   * a CUDA tensor goes through the hand-written CUDA kernel
     (``flash_attention`` / ``decode_attention`` / the intra-chunk pass of
-    ``ssd``), or the call raises;
+    ``ssd``), or the call raises.  Under grad, flash attention runs as
+    ``FlashAttentionFn``: its forward kernel with the LSE output, and its
+    backward kernel when the graph is differentiated;
   * a CPU tensor goes through the plain version in ``ref``:
     ``set_backend("blocked")`` (the default, as in the JAX package) or
-    ``"naive"`` chooses which.
+    ``"naive"`` chooses which; torch's autograd differentiates it, as JAX's
+    differentiates the reference's plain versions.
 
 No backend value sends a CUDA tensor to the plain version.  Models call only
 these entry points.

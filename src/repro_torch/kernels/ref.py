@@ -48,12 +48,11 @@ def _as_lengths(lengths, b: int, device) -> torch.Tensor | None:
 # Attention — naive oracle
 # --------------------------------------------------------------------------
 
-def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    q_offset: int = 0,
-                    lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-materialisation attention.  ``q_offset`` is the absolute position
-    of q[0]; ``lengths`` (B,) masks the KV suffix (per-sequence fill)."""
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                   window: int | None, q_offset: int, lengths
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scaled fp32 scores (B, Hkv, G, Tq, Tk), NEG_INF where masked, and the
+    mask, broadcastable to them."""
     b, tq, hq, d = q.shape
     _, tk, hkv, _ = k.shape
     qg = _gqa_expand(q, hkv)
@@ -72,12 +71,73 @@ def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = mask[:, None, None]                       # (b,1,1,tq,tk)
     else:
         mask = mask[None, None, None]
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0,
+                    lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-materialisation attention.  ``q_offset`` is the absolute position
+    of q[0]; ``lengths`` (B,) masks the KV suffix (per-sequence fill)."""
+    return attention_lse_naive(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, lengths=lengths)[0]
+
+
+def attention_lse_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0,
+                        lengths: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``attention_naive``'s output and the natural-log log-sum-exp of each
+    row's scaled scores over its valid keys, fp32 (B, Hq, Tq); NEG_INF for a
+    row with no valid key.  The plain version of the flash kernel's forward
+    with its ``lse`` output, which the backward reads."""
+    b, tq, hq, d = q.shape
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             q_offset=q_offset, lengths=lengths)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)         # 0 on masked rows
-    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)     # fully-masked row → 0
+    l = p.sum(-1, keepdim=True)
+    p = p / l.clamp_min(1e-30)                           # fully-masked row → 0
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(b, tq, hq, d).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), NEG_INF)  # (b,hkv,g,tq,1)
+    return (o.reshape(b, tq, hq, d).to(q.dtype),
+            lse.reshape(b, hq, tq))
+
+
+def attention_bwd_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0,
+                        lengths: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The FlashAttention-2 backward equations, the plain version of the
+    backward kernel.  ``o`` and ``lse`` are the forward's
+    (``attention_lse_naive``), ``do`` the output's gradient.  In fp32:
+    Δ = rowsum(dO∘O), P = exp(S − lse) (0 where masked), dV = Pᵀ dO,
+    dP = dO Vᵀ, dS = P∘(dP − Δ), dQ = dS K·scale and dK = dSᵀ Q·scale, dK
+    and dV summed over each GQA group.  Returns (dq, dk, dv) in the dtypes
+    of q, k and v; a row with no valid key gets zero gradients."""
+    b, tq, hq, d = q.shape
+    _, tk, hkv, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             q_offset=q_offset, lengths=lengths)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(
+        b, hkv, g, tq, 1)), 0.0)                         # (b,hkv,g,tq,tk)
+    dog = _gqa_expand(do, hkv).float()                   # (b,tq,hkv,g,d)
+    delta = (dog * _gqa_expand(o, hkv).float()).sum(-1)  # (b,tq,hkv,g)
+    delta = delta.permute(0, 2, 3, 1)[..., None]         # (b,hkv,g,tq,1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      _gqa_expand(q, hkv).float()) * scale
+    return (dq.reshape(b, tq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # --------------------------------------------------------------------------

@@ -60,7 +60,9 @@ def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
     fp32.  Returns (y_diag (b, nc, c, nh*hd), states (b, nc, nh, n, hd)) in
     fp32.  Semantics of ``ref.ssd_intra_chunk``."""
     global launches
-    check_no_grad("ssd_intra_chunk", xdt, dacs, B, C)
+    check_no_grad("ssd_intra_chunk",
+                  "its backward kernel comes with the SSM and hybrid training "
+                  "slice", xdt, dacs, B, C)
     if xdt.device.type != "cuda":
         raise ValueError(
             f"the CUDA kernel takes CUDA tensors, got {xdt.device}; "

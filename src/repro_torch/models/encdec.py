@@ -9,7 +9,8 @@ positional embeddings; LayerNorm and GeLU as in the Whisper family.
 Decode cache: self-attention ``k``/``v`` (L, B, S, Hkv, hd) and the static
 cross K/V ``xk``/``xv`` (L, B, T_enc, Hkv, hd) computed once at prefill,
 both stacked over the decoder layers.  A Python loop over layers takes the
-place of ``lax.scan``; remat comes with the training slice.
+place of ``lax.scan``; training remats each decoder layer, as the reference
+does, with ``torch.utils.checkpoint`` (``transformer.run_remat``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from . import layers as L
 from .config import ArchConfig
 from .transformer import (CACHE_DTYPE, attn_params, embed_params,
-                          layer_params, mlp_params, norm_params)
+                          mlp_params, norm_params, remat_groups, run_remat,
+                          unstack)
 
 
 # --------------------------------------------------------------------------
@@ -74,8 +76,7 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
     b, t, _ = frames.shape
     positions = torch.arange(t, device=frames.device)[None].expand(b, t)
     x = frames.to(torch.bfloat16)
-    for i in range(cfg.encoder_layers):
-        p = layer_params(params["encoder"], i)
+    for p in unstack(params["encoder"]):
         h = L.apply_norm(cfg, p["ln1"], x)
         a, _ = L.attention(cfg, p["attn"], h, positions=positions,
                            mode="full", causal=False)
@@ -97,12 +98,15 @@ def _cross_kv(cfg: ArchConfig, p: dict, enc: torch.Tensor
 def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
            enc: torch.Tensor | None = None, mode: str = "train",
            cache: dict | None = None, lengths: torch.Tensor | None = None,
-           logits_tail: int | None = None
+           logits_tail: int | None = None, remat: bool = False,
+           return_hidden: bool = False
            ) -> tuple[torch.Tensor, dict | None]:
     """Decoder pass.  mode="train"/"prefill" needs ``enc`` (encoder states)
     and prefill returns the cache it built; mode="decode" reads the cached
     cross K/V, writes the new token's k/v into ``cache`` in place and
-    returns it."""
+    returns it.  ``remat`` (train mode under autograd): checkpoint every
+    decoder layer.  ``return_hidden``: the final-normed hidden states in
+    place of the logits."""
     b, t = tokens.shape
     x = L.embed(params["embed"], tokens).to(torch.bfloat16)
     if mode == "decode":
@@ -113,10 +117,10 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         if enc is None:
             raise ValueError(f"mode {mode!r} needs the encoder states")
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
-    built: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
-    for i in range(cfg.n_layers):
-        p = layer_params(params["decoder"], i)
-        lc = None if cache is None else {k: v[i] for k, v in cache.items()}
+    layers = unstack(params["decoder"])
+
+    def layer(i, x, lc=None):
+        p = layers[i]
         h = L.apply_norm(cfg, p["ln1"], x)
         a, kv = L.attention(cfg, p["attn"], h, positions=positions,
                             mode=mode, causal=True,
@@ -133,10 +137,20 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                            mode=mode, causal=False, kv_override=(xk, xv))
         x = x + c
         x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
-        if mode == "prefill":
-            for k, val in (("k", kv["k"]), ("v", kv["v"]), ("xk", xk),
-                           ("xv", xv)):
-                built[k].append(val)
+        return x, (("k", kv["k"]), ("v", kv["v"]), ("xk", xk), ("xv", xv))
+
+    built: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
+    groups = remat_groups(cfg.n_layers, remat and mode == "train", 1)
+    if groups is not None:
+        x = run_remat(groups, lambda i, x: layer(i, x)[0], x)
+    else:
+        for i in range(cfg.n_layers):
+            lc = (None if cache is None
+                  else {k: v[i] for k, v in cache.items()})
+            x, entries = layer(i, x, lc)
+            if mode == "prefill":
+                for k, val in entries:
+                    built[k].append(val)
     new_cache = None
     if mode == "prefill":
         new_cache = {k: torch.stack(v) for k, v in built.items()}
@@ -145,16 +159,21 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_tail is not None:
         x = x[:, -logits_tail:]
+    if return_hidden:
+        return x, new_cache
     return L.unembed(cfg, params["embed"], x), new_cache
 
 
 def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
             tokens: torch.Tensor, *, mode: str = "train",
             cache: dict | None = None, lengths: torch.Tensor | None = None,
-            logits_tail: int | None = None
+            logits_tail: int | None = None, remat: bool = False,
+            return_hidden: bool = False
             ) -> tuple[torch.Tensor, dict | None]:
     """Full enc-dec pass (train / prefill).  Decode uses ``decode``
-    directly."""
+    directly.  ``remat`` checkpoints the decoder layers (the encoder is not
+    rematted, as in the reference)."""
     enc = encode(cfg, params, frames)
     return decode(cfg, params, tokens, enc=enc, mode=mode, cache=cache,
-                  lengths=lengths, logits_tail=logits_tail)
+                  lengths=lengths, logits_tail=logits_tail, remat=remat,
+                  return_hidden=return_hidden)

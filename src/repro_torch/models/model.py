@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.dag import Block, ModelDAG
-from . import encdec, transformer, vlm
+from . import encdec, layers, transformer, vlm
 from .config import ArchConfig, ShapeConfig
 
 
@@ -129,20 +129,34 @@ class Model:
     # engine passes none and serves "dense", as the JAX engine does.  The
     # audio family reads ``batch["frames"]`` (B, T_enc, d) and the VLM
     # ``batch["vision"]`` (B, Nv, d) in train and prefill.
-    def apply_train(self, params: dict, batch: dict, *,
-                    moe_impl: str = "dense") -> torch.Tensor:
-        """Logits (B, T, V) fp32 over the whole sequence."""
+    def apply_train(self, params: dict, batch: dict, *, remat: bool = True,
+                    moe_impl: str = "dense", remat_group: int = 1,
+                    return_hidden: bool = False) -> torch.Tensor:
+        """Logits (B, T, V) fp32 over the whole sequence, or the final-normed
+        hidden states (B, T, d) with ``return_hidden`` (chunked CE unembeds
+        them in slices, ``unembed_hidden``).  ``remat`` checkpoints every
+        ``remat_group`` layers under autograd (the audio family's decoder
+        layers, the VLM's groups); without autograd it changes nothing."""
         cfg = self.cfg
         if cfg.family == "audio":
             out, _ = encdec.forward(cfg, params, batch["frames"],
-                                    batch["tokens"], mode="train")
+                                    batch["tokens"], mode="train",
+                                    remat=remat, return_hidden=return_hidden)
         elif cfg.family == "vlm":
             out, _ = vlm.forward(cfg, params, batch["tokens"],
-                                 vision=batch["vision"], mode="train")
+                                 vision=batch["vision"], mode="train",
+                                 remat=remat, return_hidden=return_hidden)
         else:
             out, _ = transformer.forward(cfg, params, batch["tokens"],
-                                         mode="train", moe_impl=moe_impl)
+                                         mode="train", remat=remat,
+                                         remat_group=remat_group,
+                                         moe_impl=moe_impl,
+                                         return_hidden=return_hidden)
         return out
+
+    def unembed_hidden(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, d) → (B, T, V) fp32 logits (the shared head)."""
+        return layers.unembed(self.cfg, params["embed"], x)
 
     def apply_prefill(self, params: dict, batch: dict, *,
                       moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:

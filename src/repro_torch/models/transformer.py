@@ -8,8 +8,13 @@ the place of ``lax.scan``.  An ``ssm`` layer is a Mamba-2 mixer alone; a
 and averages them; a ``moe`` layer has a routed expert FFN in place of the
 MLP, lowered as ``moe_impl`` says.  Non-uniform attention (gemma3's
 local:global) rides a per-layer window list: global layers get ``kv_len``.
-Remat and the bf16 carry barrier are training concerns and come with the
-training slice.
+
+Training remats groups of layers (``remat``, ``remat_group``) with
+``torch.utils.checkpoint`` where the reference uses ``jax.checkpoint``.  The
+reference also pins the checkpointed carry with ``_pinned``, an XLA
+scheduling barrier that keeps XLA from hoisting an fp32 copy of the residual
+stack out of its scan; eager PyTorch schedules nothing, so it has no
+counterpart here: the carry between groups is simply the bf16 ``x``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ArchConfig
@@ -165,10 +171,41 @@ def _moe_params(cfg: ArchConfig, gen: torch.Generator, device, dtype
             "w_up": stack(e, d, f), "w_down": stack(e, f, d)}
 
 
-def layer_params(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked tree."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+def unstack(stacked: dict) -> list[dict]:
+    """Every layer's parameters, views into the stacked tree, by one
+    ``unbind`` per leaf.  Under autograd the layers' gradients of a leaf are
+    then gathered by one stack, where a view per layer (``leaf[i]``) would
+    add a zero-filled gradient of the whole stack per layer."""
+    leaves = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v)
+              for k, v in stacked.items()}
+    n = len(next(iter(leaves.values())))
+    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]
+
+
+def remat_groups(n_layers: int, remat: bool, remat_group: int
+                 ) -> list[range] | None:
+    """The layer groups each checkpointed as a whole (the reference's rule:
+    ``remat_group`` applies only when it divides ``n_layers``, else every
+    layer is its own group), or None without remat or outside autograd."""
+    if not remat or not torch.is_grad_enabled():
+        return None
+    g = (remat_group if remat_group > 1 and n_layers % remat_group == 0
+         else 1)
+    return [range(lo, lo + g) for lo in range(0, n_layers, g)]
+
+
+def run_remat(groups: list[range], layer, x: torch.Tensor) -> torch.Tensor:
+    """``x = layer(i, x)`` for every layer, each group under
+    ``torch.utils.checkpoint``: the backward pass recomputes a group's
+    activations from its input instead of keeping them."""
+    def run(x, group):
+        for i in group:
+            x = layer(i, x)
+        return x
+
+    for group in groups:
+        x = checkpoint(run, x, group, use_reentrant=False)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -255,7 +292,9 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             mode: str = "train", cache: dict | None = None,
             lengths: torch.Tensor | None = None,
-            moe_impl: str = "dense", logits_tail: int | None = None
+            moe_impl: str = "dense", remat: bool = False,
+            remat_group: int = 1, logits_tail: int | None = None,
+            return_hidden: bool = False
             ) -> tuple[torch.Tensor, dict | None]:
     """tokens: (B, T) integer.
 
@@ -265,7 +304,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     ``lengths`` (new token position = lengths-1); the cache is updated in
     place and returned.  ``moe_impl``: the MoE layers' lowering
     (``layers.moe_apply``).  ``logits_tail``: only unembed the last N
-    positions.
+    positions.  ``remat`` (train mode under autograd): checkpoint every
+    ``remat_group`` layers (every layer unless it divides ``n_layers``).
+    ``return_hidden``: the final-normed hidden states (B, T, d) in place of
+    the logits.
     """
     b, t = tokens.shape
     x = L.embed(params["embed"], tokens).to(torch.bfloat16)
@@ -278,19 +320,29 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
         kv_len = t
     wsched = window_schedule(cfg, kv_len)
-    built: dict[str, list] = {}
-    for i in range(cfg.n_layers):
+    layers = unstack(params["layers"])
+
+    def layer(i, x, lc=None):
         # a window of -1 means "no window"
         w = None if wsched is None else (NO_WINDOW if wsched[i] < 0
                                          else wsched[i])
-        lc = None if cache is None else {k: v[i] for k, v in cache.items()}
-        x, lcache = apply_layer(cfg, layer_params(params["layers"], i), x,
-                                mode=mode, positions=positions, window=w,
-                                layer_cache=lc, lengths=lengths,
-                                moe_impl=moe_impl)
-        if mode == "prefill":
-            for k, v in lcache.items():
-                built.setdefault(k, []).append(v)
+        return apply_layer(cfg, layers[i], x, mode=mode, positions=positions,
+                           window=w, layer_cache=lc, lengths=lengths,
+                           moe_impl=moe_impl)
+
+    built: dict[str, list] = {}
+    groups = remat_groups(cfg.n_layers, remat and mode == "train",
+                          remat_group)
+    if groups is not None:
+        x = run_remat(groups, lambda i, x: layer(i, x)[0], x)
+    else:
+        for i in range(cfg.n_layers):
+            lc = (None if cache is None
+                  else {k: v[i] for k, v in cache.items()})
+            x, lcache = layer(i, x, lc)
+            if mode == "prefill":
+                for k, v in lcache.items():
+                    built.setdefault(k, []).append(v)
     new_cache = None
     if mode == "prefill":
         new_cache = {k: torch.stack(v) for k, v in built.items()}
@@ -299,4 +351,6 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_tail is not None:
         x = x[:, -logits_tail:]
+    if return_hidden:
+        return x, new_cache
     return L.unembed(cfg, params["embed"], x), new_cache

@@ -9,7 +9,8 @@ over the image is computed once at prefill and is static during decode.
 Parameter layout: a two-level stack, groups (n_layers // cross_attn_every)
 outside and self layers per group (cross_attn_every − 1) inside, plus one
 cross layer per group with its tanh gates, which start closed (0).  Python
-loops over both levels take the place of the nested ``lax.scan``.
+loops over both levels take the place of the nested ``lax.scan``; training
+remats each group with ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from . import layers as L
 from .config import ArchConfig
 from .transformer import (CACHE_DTYPE, attn_params, embed_params,
-                          layer_params, mlp_params, norm_params)
+                          mlp_params, norm_params, remat_groups, run_remat,
+                          unstack)
 
 
 def n_groups(cfg: ArchConfig) -> int:
@@ -68,12 +70,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             vision: torch.Tensor | None = None, mode: str = "train",
             cache: dict | None = None, lengths: torch.Tensor | None = None,
-            logits_tail: int | None = None
+            logits_tail: int | None = None, remat: bool = False,
+            return_hidden: bool = False
             ) -> tuple[torch.Tensor, dict | None]:
     """tokens: (B, T); vision: (B, Nv, d_model) stub patch embeddings,
     required for train/prefill (decode reads the cached cross K/V).  Prefill
     returns the cache it built; decode updates ``cache`` in place and
-    returns it."""
+    returns it.  ``remat`` (train mode under autograd): checkpoint every
+    group (its self layers and its cross layer), as the reference does.
+    ``return_hidden``: the final-normed hidden states in place of the
+    logits."""
     b, t = tokens.shape
     hkv, hd = cfg.n_kv_heads, cfg.hd
     x = L.embed(params["embed"], tokens).to(torch.bfloat16)
@@ -86,13 +92,12 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             raise ValueError(f"mode {mode!r} needs the vision embeddings")
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
     vis = None if vision is None else vision.to(torch.bfloat16)
-    built: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
-    for gi in range(n_groups(cfg)):
-        gc = None if cache is None else {k: v[gi] for k, v in cache.items()}
-        gp_self = layer_params(params["self"], gi)
+    selfs = [unstack(g) for g in unstack(params["self"])]
+    crosses = unstack(params["cross"])
+
+    def group(gi, x, gc=None):
         kvs = []
-        for j in range(self_per_group(cfg)):
-            p = layer_params(gp_self, j)
+        for j, p in enumerate(selfs[gi]):
             h = L.apply_norm(cfg, p["ln1"], x)
             a, kv = L.attention(cfg, p["attn"], h, positions=positions,
                                 mode=mode, causal=True,
@@ -103,7 +108,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
             kvs.append(kv)
         # the group's cross-attention layer
-        pc = layer_params(params["cross"], gi)
+        pc = crosses[gi]
         h = L.apply_norm(cfg, pc["ln1"], x)
         if mode == "decode":
             xk, xv = gc["xk"], gc["xv"]
@@ -117,11 +122,22 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x = x + torch.tanh(pc["gate_attn"]).to(x.dtype) * c
         m = L.mlp(cfg, pc["mlp"], L.apply_norm(cfg, pc["ln2"], x))
         x = x + torch.tanh(pc["gate_mlp"]).to(x.dtype) * m
-        if mode == "prefill":
-            built["k"].append(torch.stack([kv["k"] for kv in kvs]))
-            built["v"].append(torch.stack([kv["v"] for kv in kvs]))
-            built["xk"].append(xk)
-            built["xv"].append(xv)
+        return x, kvs, xk, xv
+
+    built: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
+    groups = remat_groups(n_groups(cfg), remat and mode == "train", 1)
+    if groups is not None:
+        x = run_remat(groups, lambda gi, x: group(gi, x)[0], x)
+    else:
+        for gi in range(n_groups(cfg)):
+            gc = (None if cache is None
+                  else {k: v[gi] for k, v in cache.items()})
+            x, kvs, xk, xv = group(gi, x, gc)
+            if mode == "prefill":
+                built["k"].append(torch.stack([kv["k"] for kv in kvs]))
+                built["v"].append(torch.stack([kv["v"] for kv in kvs]))
+                built["xk"].append(xk)
+                built["xv"].append(xv)
     new_cache = None
     if mode == "prefill":
         new_cache = {k: torch.stack(v) for k, v in built.items()}
@@ -130,4 +146,6 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_tail is not None:
         x = x[:, -logits_tail:]
+    if return_hidden:
+        return x, new_cache
     return L.unembed(cfg, params["embed"], x), new_cache

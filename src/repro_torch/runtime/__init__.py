@@ -1,5 +1,7 @@
 """The port's runtime layer: elastic re-planning on membership changes
-(``ElasticController``).  Fault tolerance waits for the training slice
-(``ROADMAP.md``)."""
+(``ElasticController``) and fault tolerance for training runs
+(``CheckpointPolicy``, ``StragglerPolicy``, ``FaultTolerantRunner``)."""
 
 from .elastic import ElasticController  # noqa: F401
+from .fault_tolerance import (CheckpointPolicy,  # noqa: F401
+                              FaultTolerantRunner, StragglerPolicy)

@@ -55,6 +55,11 @@ FLEET_MODULES = [f"repro_torch.{m}" for m in (
     "core.cluster", "core.edge_models", "fleet.traces", "fleet.controller",
     "sharding.plan", "runtime.elastic", "telemetry.events",
     "telemetry.recorder")]
+# the training stack
+TRAINING_MODULES = [f"repro_torch.{m}" for m in (
+    "training.optimizer", "training.train_loop", "training.checkpoint",
+    "training._msgpack", "training.data", "training.tree",
+    "runtime.fault_tolerance", "launch.train")]
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -67,7 +72,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED")[1].split()[0]) >= 50
     loaded = set(out.stdout.split("NAMES")[1].split())
-    for mods in (PLANNER_MODULES, FLEET_MODULES):
+    for mods in (PLANNER_MODULES, FLEET_MODULES, TRAINING_MODULES):
         assert set(mods) <= loaded, set(mods) - loaded
 
 
@@ -120,6 +125,63 @@ def test_gpu_planning_and_fleet_run_where_jax_and_repro_cannot_import():
     assert out.returncode == 0, out.stderr
     assert "WORLDS 1 2 2 6" in out.stdout, out.stdout
     assert "NODE dp_tp" in out.stdout and "BAD []" in out.stdout, out.stdout
+
+
+# the training path with jax, repro and msgpack refused (the GPU machine has
+# no msgpack): two train steps, a checkpoint written and restored
+_TRAIN_WITHOUT_JAX = """
+import sys, tempfile
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"):
+            raise ImportError(f"refused: {name}")
+
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+import torch
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.runtime import CheckpointPolicy
+from repro_torch.sharding.plan import SINGLE_POD, ShardingPlan
+from repro_torch.training import optimizer as optim, tree
+from repro_torch.training.data import SyntheticDataset
+from repro_torch.training.train_loop import make_train_step
+
+model = build_model(get_config("gemma-2b").reduced())
+params = model.init(torch.Generator().manual_seed(0), device="cpu")
+state = optim.init(params)
+step = make_train_step(model, optim.OptConfig(warmup_steps=1), ShardingPlan(
+    arch="t", shape="s", mesh=SINGLE_POD, global_mode="data",
+    local_layout="x", batch_axes=()))
+data = iter(SyntheticDataset(model.cfg, 2, 16))
+for _ in range(2):
+    batch = {k: torch.from_numpy(v) for k, v in next(data).items()}
+    params, state, metrics = step(params, state, batch)
+pol = CheckpointPolicy(tempfile.mkdtemp(), every_steps=1)
+pol.maybe_save(2, (params, state))
+(p2, s2), at = pol.resume((params, state))
+same = all(torch.equal(a, b) for a, b in zip(tree.leaves((p2, s2)),
+                                             tree.leaves((params, state))))
+print("STEP", int(state.step), at, same, np.isfinite(float(metrics["loss"])))
+print("BAD", sorted(n for n in sys.modules if n.split(".")[0]
+                    in ("jax", "jaxlib", "repro", "msgpack")))
+"""
+
+
+def test_training_runs_where_jax_repro_and_msgpack_cannot_import():
+    """Train steps and a checkpoint round trip with jax, ``repro`` and
+    ``msgpack`` refused at import: the port carries its own codec."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _TRAIN_WITHOUT_JAX],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "STEP 2 2 True True" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def _needs_no_gpu():

@@ -219,14 +219,38 @@ def _wrapper_calls():
     }
 
 
+def _flash_builds_a_graph_under_grad():
+    """Flash attention has a backward kernel: under grad its wrapper runs
+    ``FlashAttentionFn``, whose graph a CPU test builds with the plain
+    versions in the kernels' places; the wrapper itself still takes CUDA
+    tensors only, and raises on the CPU before any build or launch."""
+    q = torch.randn(1, 4, 2, 16, generator=torch.Generator().manual_seed(0))
+    qg = q.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention(qg, q, q)
+    out = fa.FlashAttentionFn.apply(qg, q, q, None, True, None, 0,
+                                    ref.attention_lse_naive,
+                                    ref.attention_bwd_naive)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    assert ops.flash_attention(qg, q, q).grad_fn is not None  # ref's autograd
+    assert fa.launches == 0 and fa.bwd_launches == 0
+
+
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
                                   "ssd_intra_chunk"])
 def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
     """A kernel's output carries no grad_fn, so a backward pass through it
-    would drop its inputs' gradients silently: under grad, a wrapper given
-    an input that requires grad raises, before its device check (so CPU
-    tensors show it); under no_grad the same call reaches the device check
-    as before, and nothing launches."""
+    would drop its inputs' gradients silently: under grad, the decode and
+    SSD wrappers, given an input that requires grad, raise (naming what
+    would lift the refusal), before their device check (so CPU tensors show
+    it); under no_grad the same call reaches the device check as before,
+    and nothing launches.  Flash attention no longer refuses: it has its
+    backward kernel (``_flash_builds_a_graph_under_grad``)."""
+    if name == "flash_attention":
+        _flash_builds_a_graph_under_grad()
+        return
     fn, args, kw = _wrapper_calls()[name]
     grad_args = [a.clone().requires_grad_(True) if i == 0 else a
                  for i, a in enumerate(args)]
