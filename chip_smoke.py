@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit.  Imports nothing of jax and nothing of the JAX package.  Phases,
 each of which exits non-zero when it fails:
 
-1. the card (``nvidia-smi`` name and power limit); the four kernels
-   (flash attention, its backward, decode attention, SSD) are built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
-   parallel), and ptxas's registers and spill bytes are logged per
+1. the card (``nvidia-smi`` name and power limit); the five kernels
+   (flash attention, its backward, decode attention, the SSD pass and its
+   backward) are built from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   source, in parallel), and ptxas's registers and spill bytes are logged per
    instantiation (a tensor-core instantiation that spills fails: bf16
    attention forward and backward, the TF32 SSD pass);
 2. each CUDA kernel against its plain PyTorch version on the card: the shape
@@ -27,7 +28,13 @@ each of which exits non-zero when it fails:
    cross cache); and the grouped MoE step (``moe_ep.moe_ep_a2a`` on
    ``torch._grouped_mm``) against the dense oracle, one full-width layer of
    qwen3 at 4 and 441 tokens (one case with an expert that gets no token)
-   and of mixtral at 39, at the bf16 ``TOL``;
+   and of mixtral at 39, at the bf16 ``TOL``; the SSD backward kernel
+   against ``ref.ssd_intra_chunk_bwd`` at atol 1e-4 (the reference's shape
+   list, mamba2-780m's and hymba-1.5b's training shapes, a 39-token chunk,
+   the strong-decay case; two calls give the same bits), the SSD forward
+   kernel's outputs and the whole scan's outputs at those shapes too, and
+   the whole scan's gradients through it against autograd of
+   ``ref.ssd_chunked``, with and without an incoming state;
 3. calibrate and plan, the paper's analyzer loop: ``Profiler.profile_kernels``
    on ``cuda:0`` sweeps the three kernels through ``ops`` in fp32 at the JAX
    package's ``DEFAULT_KERNEL_SHAPES`` and the serving shapes timed in 5,
@@ -96,21 +103,30 @@ each of which exits non-zero when it fails:
    (the attention lines also give the time with it).  Cross-attention is
    timed the same way: flash at the VLM's 441 x 1601 and whisper's
    441 x 220, decode over 1601 and 512 rows; the flash backward at
-   gemma-2b's training shape beside SDPA's backward;
+   gemma-2b's training shape beside SDPA's backward; the SSD backward at
+   mamba2-780m's and hymba-1.5b's training shapes beside its plain
+   version (no library call computes it);
 6. (run before the times) the training slice: the flash backward kernel
    against ``ref.attention_bwd_naive`` (with the forward's LSE against
    ``ref.attention_lse_naive``) on the reference's shape list in fp32 and
-   bf16 and at gemma-2b's training shape, B=2, T=1024 (checked with the
-   other kernels in phase 2); ``repro_torch.launch.train`` at its defaults
+   bf16 and at the training shapes of gemma-2b (B=2, T=1024) and
+   hymba-1.5b (B=1, T=2048, window 1024) (checked with the other kernels
+   in phase 2); ``repro_torch.launch.train`` at its defaults
    (reduced gemma-2b, 200 steps: the loss falls, checkpoints every 50
    steps) and a second run resuming from its last checkpoint; gemma-2b at
    full width and 2 layers, loss and gradients through the kernels against
    attention on the plain version; gemma-2b at full width and depth, 5
    steps of ``make_train_step`` (remat, chunked CE, fp32 AdamW state):
    exactly 36 forward and 18 backward flash calls a step, step ms,
-   tokens/s, peak memory and the device-busy share of one step.
+   tokens/s, peak memory and the device-busy share of one step; then the
+   SSM and hybrid families: mamba2-780m at full width and 2 layers against
+   the SSD on its plain version, the trainer CLI with ``--arch
+   mamba2-780m``, and 5 full-depth steps each of mamba2-780m (B=2,
+   T=1024: exactly 96 forward and 48 backward SSD calls a step) and
+   hymba-1.5b (B=1, T=2048: 64 and 32 SSD calls, 64 and 32 flash calls);
+   the loss must fall in each of the three full-depth runs.
 
-The last two lines are the ``{"kernels": [...]}`` record (four kernels)
+The last two lines are the ``{"kernels": [...]}`` record (five kernels)
 and
 ``{"ok": true, "device": {...}}``.
 """
@@ -226,6 +242,14 @@ DECODE_LENS = [([544, 400, 256, 96], None), ([1024, 700, 33, 1], None),
 # d_state 128) and hymba-1.5b (50 heads, d_state 16)
 SSD_PREFILL = [(1, 512, 48, 64, 128, 128), (1, 39, 48, 64, 128, 128),
                (1, 512, 50, 64, 16, 128), (1, 39, 50, 64, 16, 128)]
+# the SSM and hybrid training cells, B x T per step.  hymba-1.5b trains on
+# 2048 tokens so that its window of 1024 masks keys in the flash forward
+# and backward (at T=1024 it never would)
+SSM_TRAIN_BATCH = {"mamba2-780m": (2, 1024), "hymba-1.5b": (1, 2048)}
+# the SSD pass at those shapes, (b, t, nh, hd, n, chunk): mamba2-780m's
+# eight chunks (timed and recorded in the kernels line) and hymba-1.5b's
+# sixteen chunks of its 50-head, d_state 16 branch
+SSD_TRAIN = [(2, 1024, 48, 64, 128, 128), (1, 2048, 50, 64, 16, 128)]
 # strong decay: mamba2 widths with A scaled by 20, so that the log-decay
 # cumsum falls below -100 inside a chunk and exp(dacs_i - dacs_j) overflows
 # for j > i (the kernel selects before the exp)
@@ -348,6 +372,101 @@ def check_ssd(shape, seed, a_scale=1.0) -> float:
             _check(f"ssd {shape} h0={h is not None} {part}", g, w, SSD_ATOL,
                    0.0)
     return err
+
+
+def _bwd_case(ops_, nh, hd, seed):
+    """Seeded gradients (dy, dstates) of the pass's two outputs."""
+    b, nc, c, _ = ops_[0].shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((b, nc, c, nh * hd), generator=gen, device="cuda"),
+            torch.randn((b, nc, nh, ops_[2].shape[-1], hd), generator=gen,
+                        device="cuda"))
+
+
+def check_ssd_bwd(shape, seed, a_scale=1.0) -> tuple[float, float]:
+    """The SSD forward kernel's two outputs (y_diag, states) against
+    ``ref.ssd_intra_chunk`` at this shape, and the backward kernel against
+    ``ref.ssd_intra_chunk_bwd`` from the same operands and seeded output
+    gradients, both at atol 1e-4 (two backward calls give the same bits: no
+    atomics); then the whole scan through ``SSDIntraChunkFn`` on the kernels
+    against ``ref.ssd_chunked``, with and without an incoming state: its
+    outputs (y, final state) at atol 1e-4, and its gradients (x, dt, A, B,
+    C, D, h0) through ``torch.autograd.grad`` at atol 1e-4 plus 1e-4 of each
+    gradient's largest element: A's gradient sums over every position and
+    head column of a head (2 x 1024 x 64 terms at mamba2-780m's training
+    shape), so fp32 sums in another order part by more than 1e-4 where the
+    gradient is large (2.4e-4 seen there).  Returns the forward kernel's and
+    the backward kernel's largest errors."""
+    b, t, nh, hd, n, chunk = shape
+    x, dt, A, B, C, D = ssd_case(b, t, nh, hd, n, seed, a_scale)
+    ops_ = ssd_scan.chunk_operands(x, dt, A, B, C, chunk)
+    got = ssd_scan.ssd_intra_chunk(*ops_, nh=nh, hd=hd)
+    want = ref.ssd_intra_chunk(*ops_, nh=nh, hd=hd)
+    fwd_err = max(_check(f"ssd_intra_chunk {shape} {part}", g, w, SSD_ATOL,
+                         0.0)
+                  for part, g, w in zip(("y_diag", "states"), got, want))
+    dy, dstates = _bwd_case(ops_, nh, hd, seed + 1)
+    got = ssd_scan.ssd_intra_chunk_bwd(*ops_, dy, dstates, nh=nh, hd=hd)
+    want = ref.ssd_intra_chunk_bwd(*ops_, dy, dstates, nh=nh, hd=hd)
+    err = max(_check(f"ssd_intra_chunk_bwd {shape} {part}", g, w, SSD_ATOL,
+                     0.0)
+              for part, g, w in zip(("dxdt", "ddacs", "dB", "dC"), got,
+                                    want))
+    again = ssd_scan.ssd_intra_chunk_bwd(*ops_, dy, dstates, nh=nh, hd=hd)
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"ssd_intra_chunk_bwd {shape}: two calls part")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    h0 = torch.randn((b, nh, hd, n), generator=gen, device="cuda") * 0.1
+    gy = torch.randn(x.shape, generator=gen, device="cuda")
+    gh = torch.randn(h0.shape, generator=gen, device="cuda")
+    for h in (None, h0):
+        leaves = [v.clone().requires_grad_(True)
+                  for v in (x, dt, A, B, C, D, h0)]
+        outs, grads = [], []
+        for fn in (ssd_scan.ssd, ref.ssd_chunked):
+            out = fn(*leaves[:6], chunk=chunk,
+                     h0=None if h is None else leaves[6])
+            outs.append(out)
+            grads.append(torch.autograd.grad(
+                out, leaves[:6 if h is None else 7], (gy, gh)))
+        for part, g, w in zip(("y", "state"), *outs):
+            _check(f"ssd {shape} h0={h is not None} {part}", g.detach(),
+                   w.detach(), SSD_ATOL, 0.0)
+        for name, g, w in zip(("x", "dt", "A", "B", "C", "D", "h0"),
+                              *grads):
+            scale = w.abs().max().item()
+            _check(f"ssd grad {shape} h0={h is not None} d{name} (largest "
+                   f"{scale:.3e})", g, w, SSD_ATOL * (1 + scale), 0.0)
+    return fwd_err, err
+
+
+def check_ssd_backward() -> float:
+    """The SSD forward and backward kernels at the reference's shape list,
+    the training shapes of mamba2-780m and hymba-1.5b, a ragged 39-token
+    chunk and the strong-decay case; returns the backward's largest error
+    at the training shapes."""
+    before = ssd_scan.launches, ssd_scan.bwd_launches
+    for i, shape in enumerate(SSD_SHAPES):
+        check_ssd_bwd(shape, 1800 + i)
+    log(f"ssd backward vs plain, reference shape list: {len(SSD_SHAPES)} "
+        f"cases within atol {SSD_ATOL}, forward outputs and whole-scan "
+        "gradients with and without h0")
+    worst = 0.0
+    for i, shape in enumerate(SSD_TRAIN):
+        fwd, err = check_ssd_bwd(shape, 1850 + i)
+        log(f"  ssd fwd/bwd {shape} training: max|err| {fwd:.3e} / "
+            f"{err:.3e}")
+        worst = max(worst, err)
+    fwd, err = check_ssd_bwd(SSD_PREFILL[1], 1870)
+    log(f"  ssd fwd/bwd {SSD_PREFILL[1]} ragged chunk: max|err| {fwd:.3e} / "
+        f"{err:.3e}")
+    fwd, err = check_ssd_bwd(STRONG_DECAY, 1880, STRONG_DECAY_A)
+    log(f"  ssd fwd/bwd {STRONG_DECAY} strong decay (A x {STRONG_DECAY_A}): "
+        f"max|err| {fwd:.3e} / {err:.3e}")
+    if ssd_scan.bwd_launches == before[1] or ssd_scan.launches == before[0]:
+        raise AssertionError("the SSD gradient checks launched no kernel")
+    torch.cuda.synchronize()
+    return worst
 
 
 def check_serving_attention(hq, hkv, hd, window, prefill, decode_lens,
@@ -682,7 +801,8 @@ PTD_LIMIT = {"gemma-2b": 1e-1, "mamba2-780m": 2e-1, QWEN3: 2e-1,
 
 
 OUR_KERNELS = ("flash_bf16", "flash_f32", "decode_split", "decode_combine",
-               "ssd_intra_chunk_kernel", "bwd_delta", "bwd_dkdv", "bwd_dq")
+               "ssd_intra_chunk_kernel", "bwd_delta", "bwd_dkdv", "bwd_dq",
+               "ssd_bwd_")
 
 
 def _profile(fn, reps: int) -> dict | None:
@@ -947,6 +1067,35 @@ def time_ssd(shape) -> dict:
                    None),
         plain_ms=time_ms(lambda: ref.ssd_intra_chunk(*ops_, nh=nh, hd=hd),
                          None),
+        library_ms=None, bound_ms=bound, bound_by=by, flops=flops,
+        bytes=nbytes)
+
+
+def time_ssd_bwd(shape) -> dict:
+    """The SSD backward at a training shape.  Its least work, per chunk:
+    the scores C.B^T again (2 c^2 n over the causal pairs' half: 2 pairs
+    n), dW = dy.x^T and dxdt's W^T.dy over the causal pairs (2 nh hd pairs
+    each), dC = dS.B and dB's dS^T.C (2 pairs n each), and the state
+    terms B.dstates and x.dstates^T (2 c n nh hd each); as for the
+    forward, fp32 products at fp32 accuracy bound the operations at 3x the
+    FLOPs at the TF32 peak (3xTF32).  Bytes: xdt, dacs, B, C, dy and
+    dstates read once, dxdt, ddacs, dB and dC written once, fp32."""
+    b, t, nh, hd, n, chunk = shape
+    ops_ = ssd_scan.chunk_operands(*ssd_case(b, t, nh, hd, n, 810)[:5],
+                                   chunk)
+    dy, dstates = _bwd_case(ops_, nh, hd, 811)
+    _, nc, c, _ = ops_[0].shape
+    pairs = c * (c + 1) / 2
+    flops = float(b * nc * (2 * pairs * (2 * nh * hd + 3 * n)
+                            + 4 * c * n * nh * hd))
+    nbytes = 4.0 * (2 * sum(o.numel() for o in ops_) + dy.numel()
+                    + dstates.numel())
+    bound, by = _bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    return dict(
+        ms=time_ms(lambda: ssd_scan.ssd_intra_chunk_bwd(
+            *ops_, dy, dstates, nh=nh, hd=hd), None),
+        plain_ms=time_ms(lambda: ref.ssd_intra_chunk_bwd(
+            *ops_, dy, dstates, nh=nh, hd=hd), None),
         library_ms=None, bound_ms=bound, bound_by=by, flops=flops,
         bytes=nbytes)
 
@@ -1744,11 +1893,26 @@ GRAD_CHECK_TOL = 5e-2
 
 def _counts() -> dict:
     return {"flash_attention": fa.launches,
-            "flash_attention_bwd": fa.bwd_launches}
+            "flash_attention_bwd": fa.bwd_launches,
+            "ssd_intra_chunk": ssd_scan.launches,
+            "ssd_intra_chunk_bwd": ssd_scan.bwd_launches}
 
 
 def _zero_counts() -> None:
     fa.launches = fa.bwd_launches = 0
+    ssd_scan.launches = ssd_scan.bwd_launches = 0
+
+
+def _step_launches(cfg, layers: int | None = None) -> dict:
+    """The kernel calls of one train step (remat on): a forward call per
+    layer and per remat recompute, a backward call per layer, for flash
+    where the family attends and for the SSD pass where it has SSM
+    layers."""
+    n = cfg.n_layers if layers is None else layers
+    attn = n if cfg.family != "ssm" else 0
+    ssm = n if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "ssd_intra_chunk": 2 * ssm, "ssd_intra_chunk_bwd": ssm}
 
 
 def check_flash_bwd(b, tq, tk, hq, hkv, d, win, caus, dtype, lens, seed,
@@ -1773,9 +1937,11 @@ def check_flash_bwd(b, tq, tk, hq, hkv, d, win, caus, dtype, lens, seed,
 
 def check_backward() -> float:
     """The backward kernel on the reference's shape list in fp32 and bf16,
-    and at gemma-2b's training shape (B=2, T=1024, causal, 8 heads over 1,
-    D=256, every key valid, as training calls it) in bf16 and fp32; returns
-    the largest error at the training shape in bf16."""
+    and at the training shapes, in bf16 and fp32, every key valid, as
+    training calls it: gemma-2b's (B=2, T=1024, causal, 8 heads over 1,
+    D=256) and hymba-1.5b's (B=1, T=2048, causal, 25 heads over 5, D=64,
+    window 1024, which masks keys); returns the largest error at the
+    training shapes in bf16."""
     worst = {dt: 0.0 for dt in TOL}
     for i, (b, tq, tk, hq, hkv, d, win, caus, _, _) in enumerate(SHAPES):
         for dtype in TOL:
@@ -1794,6 +1960,14 @@ def check_backward() -> float:
             [TRAIN_T] * TRAIN_B, 1600, f"gemma-2b training {dtype}")
         log(f"  flash bwd gemma-2b training B={TRAIN_B} T={TRAIN_T} "
             f"{dtype}: max|err| {train[dtype]:.3e} (tol {BWD_TOL[dtype]})")
+    hq, hkv, hd, win = HYMBA_ATTN
+    b, t = SSM_TRAIN_BATCH["hymba-1.5b"]
+    for dtype in TOL:
+        err = check_flash_bwd(b, t, t, hq, hkv, hd, win, True, dtype, [t] * b,
+                              1650, f"hymba-1.5b training {dtype}")
+        log(f"  flash bwd hymba-1.5b training B={b} T={t} window={win} "
+            f"{dtype}: max|err| {err:.3e} (tol {BWD_TOL[dtype]})")
+        train[dtype] = max(train[dtype], err)
     torch.cuda.synchronize()
     return train[torch.bfloat16]
 
@@ -1843,10 +2017,11 @@ def run_trainer(smi: str) -> None:
                 not latest.endswith("ckpt_00000200.msgpack"):
             raise AssertionError(f"trainer ended at step {first['step']}, "
                                  f"last checkpoint {latest}")
-        if counts["flash_attention"] != 200 * 16 or \
-                counts["flash_attention_bwd"] != 200 * 8:
+        if counts != {k: 200 * v for k, v in _step_launches(
+                get_config("gemma-2b"), 8).items()}:
             raise AssertionError(f"trainer launches {counts}, expected "
-                                 "16 forward and 8 backward a step")
+                                 "16 forward and 8 backward flash calls a "
+                                 "step")
         log(f"trainer (defaults): 200 steps of 8 x 256 in "
             f"{first['seconds']:.2f} s = "
             f"{8 * 256 * 200 / first['seconds']:.0f} tok/s; loss first5 "
@@ -1862,6 +2037,42 @@ def run_trainer(smi: str) -> None:
             f"{second['step']} in {second['seconds']:.2f} s; loss first5 "
             f"{[round(x, 3) for x in second['first5']]} last5 "
             f"{[round(x, 3) for x in second['last5']]}")
+
+
+def run_ssm_trainer(smi: str) -> None:
+    """``repro_torch.launch.train --arch mamba2-780m`` at its other defaults
+    (d_model 256, 8 layers, the reduced SSM spec: 32 heads of head_dim 16,
+    d_state 8, chunk 8; 200 steps of 8 x 256): the loss must fall (the
+    CLI's own check), through exactly 16 forward and 8 backward SSD calls a
+    step."""
+    with tempfile.TemporaryDirectory() as d:
+        _zero_counts()
+        out = train_cli.main(["--arch", "mamba2-780m", "--ckpt-dir", d])
+        counts = _counts()
+        want = {k: out["steps_run"] * v for k, v in _step_launches(
+            get_config("mamba2-780m"), 8).items()}
+        if out["step"] != 200 or counts != want:
+            raise AssertionError(f"mamba2-780m trainer ended at step "
+                                 f"{out['step']} with launches {counts}, "
+                                 f"expected {want}")
+        log(f"trainer --arch mamba2-780m: 200 steps of 8 x 256 in "
+            f"{out['seconds']:.2f} s = "
+            f"{8 * 256 * 200 / out['seconds']:.0f} tok/s; loss first5 "
+            f"{[round(x, 3) for x in out['first5']]} last5 "
+            f"{[round(x, 3) for x in out['last5']]}; launches {counts} "
+            f"[{smi}]")
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """``ops.ssd`` on the plain version (torch's autograd of
+    ``ref.ssd_chunked``) for the comparison run only."""
+    kernel = ops.ssd
+    ops.ssd = ref.ssd_chunked
+    try:
+        yield
+    finally:
+        ops.ssd = kernel
 
 
 @contextlib.contextmanager
@@ -1882,8 +2093,9 @@ def plain_attention():
         ops.flash_attention = kernel
 
 
-def _train_batch(cfg, seed: int) -> dict:
-    batch = next(iter(SyntheticDataset(cfg, TRAIN_B, TRAIN_T, seed=seed)))
+def _train_batch(cfg, seed: int, b: int = TRAIN_B, t: int = TRAIN_T
+                 ) -> dict:
+    batch = next(iter(SyntheticDataset(cfg, b, t, seed=seed)))
     return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
 
 
@@ -1894,38 +2106,38 @@ def _loss_and_grads(model, params, batch):
     return loss.detach(), grads
 
 
-def check_train_grads(smi: str) -> float:
-    """gemma-2b at full width and ``GRAD_CHECK_LAYERS`` layers: loss and
+def check_train_grads(smi: str, aid: str = "gemma-2b",
+                      plain=plain_attention, batch=(TRAIN_B, TRAIN_T)
+                      ) -> float:
+    """``aid`` at full width and ``GRAD_CHECK_LAYERS`` layers: loss and
     gradients of ``loss_fn`` (remat, chunked CE) through the kernels
-    against the same with attention on the plain version; returns the
-    worst leaf's relative-norm error."""
-    cfg = dataclasses.replace(get_config("gemma-2b"),
-                              n_layers=GRAD_CHECK_LAYERS)
+    against the same with ``plain`` putting the kernel under test on its
+    plain version; returns the worst leaf's relative-norm error."""
+    cfg = dataclasses.replace(get_config(aid), n_layers=GRAD_CHECK_LAYERS)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
-    batch = _train_batch(cfg, 1)
+    tb = _train_batch(cfg, 1, *batch)
     _zero_counts()
-    loss, grads = _loss_and_grads(model, params, batch)
+    loss, grads = _loss_and_grads(model, params, tb)
     counts = _counts()
-    want = {"flash_attention": 2 * GRAD_CHECK_LAYERS,
-            "flash_attention_bwd": GRAD_CHECK_LAYERS}
+    want = _step_launches(cfg)
     if counts != want:
         raise AssertionError(f"gradient check launches {counts}, expected "
                              f"{want}")
-    with plain_attention():
-        ploss, pgrads = _loss_and_grads(model, params, batch)
+    with plain():
+        ploss, pgrads = _loss_and_grads(model, params, tb)
     if _counts() != want:
-        raise AssertionError("the plain run launched a flash kernel")
+        raise AssertionError("the plain run launched a kernel under test")
     errs = [float((g.float() - w.float()).norm() / w.float().norm())
             for g, w in zip(grads, pgrads)]
     lerr = abs(float(loss) - float(ploss)) / abs(float(ploss))
     if not all(np.isfinite(errs)) or max(errs) > GRAD_CHECK_TOL or \
             lerr > 1e-2:
-        raise AssertionError(f"kernel vs plain gradients: loss rel "
+        raise AssertionError(f"{aid} kernel vs plain gradients: loss rel "
                              f"{lerr:.3e}, leaves {errs}")
-    log(f"gemma-2b full width, {GRAD_CHECK_LAYERS} layers, B={TRAIN_B} "
-        f"T={TRAIN_T}: loss {float(loss):.5f} through the kernels, "
+    log(f"{aid} full width, {GRAD_CHECK_LAYERS} layers, B={batch[0]} "
+        f"T={batch[1]}: loss {float(loss):.5f} through the kernels, "
         f"{float(ploss):.5f} on the plain version (rel {lerr:.2e}); "
         f"{len(errs)} gradient leaves, worst relative-norm error "
         f"{max(errs):.3e} (tol {GRAD_CHECK_TOL}); launches {counts} [{smi}]")
@@ -1933,14 +2145,16 @@ def check_train_grads(smi: str) -> float:
     return max(errs)
 
 
-def train_full_depth(smi: str) -> dict:
-    """gemma-2b at full width and depth (18 layers, 2.506 B parameters,
-    fp32 with fp32 AdamW state): ``TRAIN_STEPS`` steps of
-    ``make_train_step`` (remat on, B=2, T=1024) on ``SyntheticDataset``,
-    exact launches per step (a forward call per layer and per remat
-    recompute, a backward call per layer), then one more step under the
-    profiler for the device-busy share.  Returns the step's numbers."""
-    cfg = get_config("gemma-2b")
+def train_full_depth(smi: str, aid: str = "gemma-2b",
+                     batch=(TRAIN_B, TRAIN_T)) -> dict:
+    """``aid`` at full width and depth (fp32 weights with fp32 AdamW
+    state): ``TRAIN_STEPS`` steps of ``make_train_step`` (remat on) on
+    ``SyntheticDataset`` at ``batch`` (B, T), exact kernel calls per step
+    (``_step_launches``), then one more step under the profiler for the
+    device-busy share.  The loss must fall over the steps.  Returns the
+    step's numbers."""
+    cfg = get_config(aid)
+    b, t = batch
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
@@ -1948,7 +2162,7 @@ def train_full_depth(smi: str) -> dict:
     opt = train_optim.init(params)
     torch.cuda.synchronize()
     n = sum(x.numel() for x in train_tree.leaves(params))
-    log(f"gemma-2b training: {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 "
+    log(f"{aid} training: {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 "
         f"parameters, AdamW state fp32, init {time.perf_counter() - t0:.1f}"
         f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     plan = ShardingPlan(arch=cfg.name, shape="train", mesh=GPU_NODE,
@@ -1956,70 +2170,88 @@ def train_full_depth(smi: str) -> dict:
                         batch_axes=(), remat=True)
     # the reference's OptConfig defaults (lr 3e-4 after 100 warm-up steps)
     step = train_loop.make_train_step(model, train_optim.OptConfig(), plan)
-    data = iter(SyntheticDataset(cfg, TRAIN_B, TRAIN_T, seed=2))
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
+    data = iter(SyntheticDataset(cfg, b, t, seed=2))
+    want = _step_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     times, losses, total = [], [], {k: 0 for k in want}
     for _ in range(TRAIN_STEPS):
-        batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in next(data).items()}
+        tb = {k: torch.as_tensor(v, device="cuda")
+              for k, v in next(data).items()}
         _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, metrics = step(params, opt, batch)
+        params, opt, metrics = step(params, opt, tb)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts = _counts()
         if counts != want:
-            raise AssertionError(f"train step launches {counts}, expected "
-                                 f"{want}")
+            raise AssertionError(f"{aid} train step launches {counts}, "
+                                 f"expected {want}")
         for k in total:
             total[k] += counts[k]
         losses.append(float(metrics["loss"]))
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"train losses {losses}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{aid} train losses {losses}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(times)
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in next(data).items()}
+    tb = {k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
     state = [params, opt]
 
     def one_step():
-        state[0], state[1], _ = step(state[0], state[1], batch)
+        state[0], state[1], _ = step(state[0], state[1], tb)
 
     r = _profile(one_step, 1)
     busy = None if r is None else r["device_ms"] / r["wall_ms"]
-    log(f"gemma-2b train step (B={TRAIN_B}, T={TRAIN_T}, remat, chunked CE):"
+    log(f"{aid} train step (B={b}, T={t}, remat, chunked CE):"
         f" {TRAIN_STEPS} steps, median {1e3 * med:.1f} ms "
-        f"(steps {[round(1e3 * t, 1) for t in times]} ms) = "
-        f"{TRAIN_B * TRAIN_T / med:.0f} tok/s; losses "
+        f"(steps {[round(1e3 * x, 1) for x in times]} ms) = "
+        f"{b * t / med:.0f} tok/s; losses "
         f"{[round(x, 4) for x in losses]}; peak {peak:.2f} GiB; launches "
         f"per step {want} [{smi}]")
-    log(f"gemma-2b train step: {_profiled(one_step, 1, 'train step', r)} "
+    log(f"{aid} train step: {_profiled(one_step, 1, 'train step', r)} "
         f"[{smi}]")
     if r is not None:
         top = sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:12]
-        log("gemma-2b train step, device ms by kernel: " + "; ".join(
+        log(f"{aid} train step, device ms by kernel: " + "; ".join(
             f"{k[:70]} {v:.3f}" for k, v in top))
     del params, opt, state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(step_ms=1e3 * med, tok_s=TRAIN_B * TRAIN_T / med,
-                peak_gib=peak, busy=busy, launches=total)
+    return dict(step_ms=1e3 * med, tok_s=b * t / med, peak_gib=peak,
+                busy=busy, launches=total)
+
 
 
 def train_phases(smi: str) -> dict:
     """The training slice's main path: the trainer CLI, the full-width
-    gradient check and the full-depth run.  Returns the full-depth run's
-    launch counts."""
+    gradient check and the full-depth run of gemma-2b, then those of the
+    SSM and hybrid families (mamba2-780m's gradient check against the SSD
+    on its plain version, the CLI with ``--arch mamba2-780m``, and both
+    models at full depth, each freed before the next).  Returns the launch
+    counts of gemma-2b's and mamba2-780m's full-depth runs."""
     gc.collect()
     torch.cuda.empty_cache()
     run_trainer(smi)
     check_train_grads(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    return train_full_depth(smi)["launches"]
+    launches = dict(train_full_depth(smi)["launches"])
+    check_train_grads(smi, "mamba2-780m", plain_ssd,
+                      SSM_TRAIN_BATCH["mamba2-780m"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_ssm_trainer(smi)
+    for aid, batch in SSM_TRAIN_BATCH.items():
+        r = train_full_depth(smi, aid, batch)
+        busy = "not measured" if r["busy"] is None else f"{r['busy']:.1%}"
+        log(f"{aid} training cell: step {r['step_ms']:.1f} ms, "
+            f"{r['tok_s']:.0f} tok/s, peak {r['peak_gib']:.2f} GiB, busy "
+            f"{busy}, launches in {TRAIN_STEPS} steps {r['launches']} "
+            f"[{smi}]")
+        if aid == "mamba2-780m":
+            launches["ssd_intra_chunk_bwd"] = \
+                r["launches"]["ssd_intra_chunk_bwd"]
+    return launches
 
 
 # the tensor-core instantiations, which must not spill (their accumulators
@@ -2079,6 +2311,7 @@ def main() -> int:
     # the dense oracle
     worst = check_kernels()
     worst["flash_attention_bwd"] = check_backward()
+    worst["ssd_intra_chunk_bwd"] = check_ssd_backward()
     moe_err = check_moe()
     log(f"moe grouped step vs dense oracle: {len(MOE_CASES)} cases, largest "
         f"max|err| {moe_err:.3e} within TOL {TOL[torch.bfloat16]}")
@@ -2138,8 +2371,9 @@ def main() -> int:
 
     # the training slice: the trainer CLI, the full-width gradient check
     # and gemma-2b's full-depth train steps (through the backward kernel)
-    launches["flash_attention_bwd"] = \
-        train_phases(smi)["flash_attention_bwd"]
+    trained = train_phases(smi)
+    for kname in ("flash_attention_bwd", "ssd_intra_chunk_bwd"):
+        launches[kname] = trained[kname]
 
     # 5. times at the main path's shapes
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -2182,6 +2416,14 @@ def main() -> int:
     log(_time_line(f"flash backward gemma-2b training B={TRAIN_B} "
                    f"T={TRAIN_T} (library: sdpa's backward)", r, smi))
     records["flash_attention_bwd"] = r
+    for shape in SSD_TRAIN:
+        r = time_ssd_bwd(shape)
+        log(f"time ssd bwd {shape}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}: "
+            f"{r['flops'] / 1e9:.3f} GFLOP fp32 as 3xTF32, "
+            f"{r['bytes'] / 1e6:.2f} MB) [{smi}]")
+        records.setdefault("ssd_intra_chunk_bwd", r)
     for t in (4, RAGGED_PREFILL[0]):
         time_moe_layer(t, smi)
     log(f"kernels: {list(_build.KERNELS)}")
@@ -2196,10 +2438,14 @@ def main() -> int:
                             "src/repro/kernels/ssd_scan.py:69"),
         "flash_attention_bwd": (
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "src/repro/kernels/flash_attention.py:134")}
+            "src/repro/kernels/flash_attention.py:134"),
+        "ssd_intra_chunk_bwd": (
+            "src/repro_torch/kernels/csrc/ssd_intra_chunk_bwd.cu",
+            "src/repro/kernels/ssd_scan.py:69")}
     # launches: the attention kernels' from the gemma-2b run, the SSD
     # kernel's from the mamba2-780m run (hymba-1.5b's are logged above),
-    # the backward's from gemma-2b's full-depth train steps
+    # the flash backward's from gemma-2b's full-depth train steps, the SSD
+    # backward's from mamba2-780m's
     kernels = []
     for kname in _build.KERNELS:
         r = records[kname]

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("flash_attention", "decode_attention", "ssd_intra_chunk",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ssd_intra_chunk_bwd")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -16,7 +16,8 @@ def check_no_grad(what: str, lifted_by: str, *inputs: torch.Tensor) -> None:
     ``grad_fn``, so a backward pass through it would drop the gradient of
     every input without a word.  ``lifted_by`` names the work that would
     give the kernel its backward.  Checked before the device, so that a CPU
-    tensor shows it too.  (Flash attention has its backward kernel.)"""
+    tensor shows it too.  Only decode attention refuses: flash attention
+    and the SSD intra-chunk pass have their backward kernels."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         raise RuntimeError(
             f"{what}: an input requires grad, and the CUDA kernel has no "

@@ -5,8 +5,10 @@ The tensor's device picks the path:
   * a CUDA tensor goes through the hand-written CUDA kernel
     (``flash_attention`` / ``decode_attention`` / the intra-chunk pass of
     ``ssd``), or the call raises.  Under grad, flash attention runs as
-    ``FlashAttentionFn``: its forward kernel with the LSE output, and its
-    backward kernel when the graph is differentiated;
+    ``FlashAttentionFn`` (its forward kernel with the LSE output, and its
+    backward kernel when the graph is differentiated) and the SSD
+    intra-chunk pass as ``SSDIntraChunkFn`` (its forward and backward
+    kernels; the rest of the scan is PyTorch under autograd);
   * a CPU tensor goes through the plain version in ``ref``:
     ``set_backend("blocked")`` (the default, as in the JAX package) or
     ``"naive"`` chooses which; torch's autograd differentiates it, as JAX's

@@ -384,6 +384,57 @@ def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
     return y.reshape(b, nc, c, nh * hd), states
 
 
+def ssd_intra_chunk_bwd(xdt: torch.Tensor, dacs: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                        dstates: torch.Tensor, *, nh: int, hd: int
+                        ) -> tuple[torch.Tensor, ...]:
+    """The gradients of ``ssd_intra_chunk``, written from its equations
+    (no autograd): the plain version of the backward kernel.
+
+    ``dy`` (b, nc, c, nh*hd) and ``dstates`` (b, nc, nh, n, hd) are the
+    gradients of its two outputs.  With W[h,i,j] = scores[i,j]·L[h,i,j]
+    (j <= i, L the decay mask) and decay[j,h] = exp(dacs[c-1,h] -
+    dacs[j,h]):
+
+      dW[h,i,j] = dy_h[i]·xdt_h[j]  (j <= i)
+      dxdt_h[j] = Σ_i W[h,i,j] dy_h[i]
+                  + decay[j,h] Σ_nn B[j,nn] dstates_h[nn]
+      dS        = Σ_h dW⊙L_h;  dC = dS·B
+      dB        = dSᵀ·C + Σ_h decay_h ⊙ (xdt_h·dstates_hᵀ)
+      G         = dW⊙W:  ddacs[i] += Σ_j G[i,j],  ddacs[j] -= Σ_i G[i,j]
+      E[j,h]    = decay[j,h] xdt_h[j]·(B[j]·dstates_h):
+                  ddacs[j] -= E[j,h],  ddacs[c-1,h] += Σ_j E[j,h]
+
+    Returns fp32 (dxdt, ddacs, dB, dC) in the inputs' layouts."""
+    b, nc, c, _ = xdt.shape
+    xh = xdt.float().reshape(b, nc, c, nh, hd)
+    dyh = dy.float().reshape(b, nc, c, nh, hd)
+    dacs, B, C, ds = dacs.float(), B.float(), C.float(), dstates.float()
+    scores = torch.einsum("bzin,bzjn->bzij", C, B)
+    dh = dacs.transpose(2, 3)                            # (b,nc,nh,c)
+    tril = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                 device=xdt.device))
+    # select before the exp, as the forward does: exp(dacs_i - dacs_j) may
+    # overflow for j > i, and inf * 0 would be NaN in G
+    L = torch.exp(torch.where(tril, dh[..., :, None] - dh[..., None, :],
+                              -torch.inf))               # (b,nc,nh,i,j)
+    W = scores[:, :, None] * L
+    dW = torch.einsum("bzihp,bzjhp->bzhij", dyh, xh)
+    dx = torch.einsum("bzhij,bzihp->bzjhp", W, dyh)
+    decay = torch.exp(dacs[:, :, -1:, :] - dacs)         # (b,nc,c,nh)
+    q = torch.einsum("bzjn,bzhnp->bzjhp", B, ds)         # B_j · dstates_h
+    dx = dx + decay[..., None] * q
+    dS = (dW * L).sum(2)                                 # (b,nc,i,j)
+    dC = torch.einsum("bzij,bzjn->bzin", dS, B)
+    dB = (torch.einsum("bzij,bzin->bzjn", dS, C)
+          + torch.einsum("bzjh,bzjhp,bzhnp->bzjn", decay, xh, ds))
+    G = dW * W
+    E = decay * (xh * q).sum(-1)                         # (b,nc,c,nh)
+    ddacs = ((G.sum(-1) - G.sum(-2)).transpose(2, 3) - E).contiguous()
+    ddacs[:, :, -1] += E.sum(2)
+    return dx.reshape(b, nc, c, nh * hd), ddacs, dB, dC
+
+
 # the CUDA kernel's tiles: 64 query rows (y) or state rows, 32 keys
 SSD_ROWS, SSD_KEYS = 64, 32
 

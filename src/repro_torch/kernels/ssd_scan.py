@@ -12,8 +12,13 @@ stay in XLA in the JAX package.
 current stream, without a synchronisation, into outputs allocated here.  Its
 plain version is ``ref.ssd_intra_chunk``; ``ref.ssd_intra_chunk_tf32``
 models the kernel's arithmetic (its fp32 products on TF32 tensor cores, each
-operand split in two).  ``launches`` counts the kernel launches of this
-process.
+operand split in two).  Under grad it runs as ``SSDIntraChunkFn``, whose
+backward is a second hand-written kernel (``csrc/ssd_intra_chunk_bwd.cu``,
+plain version ``ref.ssd_intra_chunk_bwd``), which the JAX package does not
+have: its Pallas kernel has no reverse mode, so its training differentiates
+``ref.ssd_chunked``.  ``launches`` counts the forward kernel's calls of this
+process, ``bwd_launches`` the backward's (one per call: a backward call is
+three launches, scores, per head, and the sum over heads).
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ import ctypes
 import torch
 
 from . import _build
-from ._wrap import check_no_grad, raise_on_error
+from ._wrap import raise_on_error
 from .ref import _pad_chunks
 
 launches = 0
+bwd_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 # a y block keeps 64 rows of C and a ring of B tiles (d_state wide), and
@@ -37,6 +43,10 @@ MAX_CHUNK, MAX_STATE = 512, 256
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ssd_intra_chunk_fwd": [
     _I, _P, _P, _P, _P, _P, _P,            # hd, xdt, dacs, B, C, y, states
+    _I, _I, _I, _I, _I, _P]}               # b, nc, c, nh, n, stream
+_BWD_SIGNATURES = {"ssd_intra_chunk_bwd": [
+    _I, _P, _P, _P, _P, _P, _P,            # hd, xdt, dacs, B, C, dy, dstates
+    _P, _P, _P, _P, _P, _P, _P,            # dxdt, ddacs, dB, dC, scores, P, R
     _I, _I, _I, _I, _I, _P]}               # b, nc, c, nh, n, stream
 
 
@@ -53,16 +63,8 @@ def _check(name: str, x: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must start on 16 bytes")
 
 
-def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
-                    C: torch.Tensor, *, nh: int, hd: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """xdt (b, nc, c, nh*hd), dacs (b, nc, c, nh), B/C (b, nc, c, n), all
-    fp32.  Returns (y_diag (b, nc, c, nh*hd), states (b, nc, nh, n, hd)) in
-    fp32.  Semantics of ``ref.ssd_intra_chunk``."""
-    global launches
-    check_no_grad("ssd_intra_chunk",
-                  "its backward kernel comes with the SSM and hybrid training "
-                  "slice", xdt, dacs, B, C)
+def _check_operands(xdt, dacs, B, C, nh: int, hd: int) -> tuple[int, ...]:
+    """The forward's argument checks; returns (b, nc, c, n)."""
     if xdt.device.type != "cuda":
         raise ValueError(
             f"the CUDA kernel takes CUDA tensors, got {xdt.device}; "
@@ -81,6 +83,17 @@ def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
                            ("dacs", dacs, (b, nc, c, nh)),
                            ("B", B, (b, nc, c, n)), ("C", C, (b, nc, c, n))):
         _check(name, x, shape, xdt.device)
+    return b, nc, c, n
+
+
+def ssd_intra_chunk_fwd(xdt: torch.Tensor, dacs: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, *, nh: int, hd: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: xdt (b, nc, c, nh*hd), dacs (b, nc, c, nh), B/C
+    (b, nc, c, n), all fp32.  Returns (y_diag (b, nc, c, nh*hd), states
+    (b, nc, nh, n, hd)) in fp32.  Semantics of ``ref.ssd_intra_chunk``."""
+    global launches
+    b, nc, c, n = _check_operands(xdt, dacs, B, C, nh, hd)
     lib = _build.load("ssd_intra_chunk", _SIGNATURES)
     y = torch.empty_like(xdt)
     states = torch.empty((b, nc, nh, n, hd), dtype=torch.float32,
@@ -92,6 +105,90 @@ def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
     launches += 1
     raise_on_error(err, "ssd_intra_chunk")
     return y, states
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """x itself where the kernel takes it (contiguous, on 16 bytes), else a
+    dense copy: an output's gradient may be a strided view."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def ssd_intra_chunk_bwd(xdt: torch.Tensor, dacs: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                        dstates: torch.Tensor, *, nh: int, hd: int
+                        ) -> tuple[torch.Tensor, ...]:
+    """The backward kernel: from the forward's inputs and the gradients of
+    its outputs, dy (b, nc, c, nh*hd) and dstates (b, nc, nh, n, hd), the
+    fp32 gradients (dxdt, ddacs, dB, dC) in the inputs' layouts.  Semantics
+    of ``ref.ssd_intra_chunk_bwd``.  The sum over heads into dB and dC runs
+    in a fixed order: two calls give the same bits."""
+    global bwd_launches
+    b, nc, c, n = _check_operands(xdt, dacs, B, C, nh, hd)
+    dy, dstates = _dense(dy), _dense(dstates)
+    _check("dy", dy, (b, nc, c, nh * hd), xdt.device)
+    _check("dstates", dstates, (b, nc, nh, n, hd), xdt.device)
+    lib = _build.load("ssd_intra_chunk_bwd", _BWD_SIGNATURES)
+    dxdt = torch.empty_like(xdt)
+    ddacs = torch.empty_like(dacs)
+    dB = torch.empty_like(B)
+    dC = torch.empty_like(C)
+    # scratch: each chunk's scores, each head's dW ⊙ L and its term of dB
+    scores = torch.empty((b, nc, c, c), dtype=torch.float32,
+                         device=xdt.device)
+    per_head = torch.empty((b, nc, nh, c, c), dtype=torch.float32,
+                           device=xdt.device)
+    per_head_db = torch.empty((b, nc, nh, c, n), dtype=torch.float32,
+                              device=xdt.device)
+    stream = torch.cuda.current_stream(xdt.device).cuda_stream
+    err = lib.ssd_intra_chunk_bwd(
+        hd, xdt.data_ptr(), dacs.data_ptr(), B.data_ptr(), C.data_ptr(),
+        dy.data_ptr(), dstates.data_ptr(), dxdt.data_ptr(), ddacs.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), scores.data_ptr(), per_head.data_ptr(),
+        per_head_db.data_ptr(), b, nc, c, nh, n, stream)
+    bwd_launches += 1
+    raise_on_error(err, "ssd_intra_chunk_bwd")
+    return dxdt, ddacs, dB, dC
+
+
+class SSDIntraChunkFn(torch.autograd.Function):
+    """The intra-chunk pass with a backward pass.  ``fwd(xdt, dacs, B, C,
+    nh=, hd=)`` returns (y_diag, states) and ``bwd(xdt, dacs, B, C, dy,
+    dstates, nh=, hd=)`` returns (dxdt, ddacs, dB, dC): the two kernels on
+    the card (``ssd_intra_chunk`` passes them), the plain versions
+    ``ref.ssd_intra_chunk`` / ``ref.ssd_intra_chunk_bwd`` where a CPU test
+    runs this same code.  Saves the four inputs."""
+
+    @staticmethod
+    def forward(ctx, xdt, dacs, B, C, nh, hd, fwd, bwd):
+        y, states = fwd(xdt, dacs, B, C, nh=nh, hd=hd)
+        ctx.save_for_backward(xdt, dacs, B, C)
+        ctx.nh, ctx.hd, ctx.bwd = nh, hd, bwd
+        return y, states
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        # autograd gives an unused output's gradient as zeros, and either
+        # may be a strided view (the kernel's wrapper makes it dense)
+        xdt, dacs, B, C = ctx.saved_tensors
+        grads = ctx.bwd(xdt, dacs, B, C, dy, dstates, nh=ctx.nh, hd=ctx.hd)
+        return (*grads, None, None, None, None)
+
+
+def ssd_intra_chunk(xdt: torch.Tensor, dacs: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, *, nh: int, hd: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xdt (b, nc, c, nh*hd), dacs (b, nc, c, nh), B/C (b, nc, c, n), all
+    fp32.  Returns (y_diag (b, nc, c, nh*hd), states (b, nc, nh, n, hd)) in
+    fp32.  Semantics of ``ref.ssd_intra_chunk``.  Under grad with an input
+    that requires it, the results' ``grad_fn`` runs the backward kernel
+    (``SSDIntraChunkFn``); otherwise one forward launch."""
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (xdt, dacs, B, C)):
+        return SSDIntraChunkFn.apply(xdt, dacs, B, C, nh, hd,
+                                     ssd_intra_chunk_fwd, ssd_intra_chunk_bwd)
+    return ssd_intra_chunk_fwd(xdt, dacs, B, C, nh=nh, hd=hd)
 
 
 def chunk_operands(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

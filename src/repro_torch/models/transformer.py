@@ -310,7 +310,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     the logits.
     """
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens).to(torch.bfloat16)
+    x = L.embed(params["embed"], tokens).to(L.COMPUTE_DTYPE)
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")

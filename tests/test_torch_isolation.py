@@ -60,6 +60,10 @@ TRAINING_MODULES = [f"repro_torch.{m}" for m in (
     "training.optimizer", "training.train_loop", "training.checkpoint",
     "training._msgpack", "training.data", "training.tree",
     "runtime.fault_tolerance", "launch.train")]
+# the kernel wrappers, their plain versions and `_build`
+KERNEL_MODULES = [f"repro_torch.kernels.{m}" for m in (
+    "_build", "_wrap", "ops", "ref", "flash_attention", "decode_attention",
+    "ssd_scan")]
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -72,7 +76,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED")[1].split()[0]) >= 50
     loaded = set(out.stdout.split("NAMES")[1].split())
-    for mods in (PLANNER_MODULES, FLEET_MODULES, TRAINING_MODULES):
+    for mods in (PLANNER_MODULES, FLEET_MODULES, TRAINING_MODULES,
+                 KERNEL_MODULES):
         assert set(mods) <= loaded, set(mods) - loaded
 
 

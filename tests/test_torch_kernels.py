@@ -238,18 +238,43 @@ def _flash_builds_a_graph_under_grad():
     assert fa.launches == 0 and fa.bwd_launches == 0
 
 
+def _ssd_builds_a_graph_under_grad():
+    """The SSD intra-chunk pass has a backward kernel: under grad its
+    wrapper runs ``SSDIntraChunkFn``, whose graph a CPU test builds with the
+    plain versions in the kernels' places; the wrapper itself still takes
+    CUDA tensors only, and raises on the CPU before any build or launch."""
+    from repro_torch.kernels import ssd_scan
+    gen = torch.Generator().manual_seed(0)
+    xdt, dacs, B, C = (torch.randn(x.shape, generator=gen)
+                       for x in _wrapper_calls()["ssd_intra_chunk"][1])
+    dacs = -dacs.abs().cumsum(2)
+    xg = xdt.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_scan.ssd_intra_chunk(xg, dacs, B, C, nh=2, hd=8)
+    y, states = ssd_scan.SSDIntraChunkFn.apply(
+        xg, dacs, B, C, 2, 8, ref.ssd_intra_chunk, ref.ssd_intra_chunk_bwd)
+    assert type(y.grad_fn).__name__ == "SSDIntraChunkFnBackward"
+    (y.sum() + states.sum()).backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+    assert ssd_scan.launches == 0 and ssd_scan.bwd_launches == 0
+
+
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
                                   "ssd_intra_chunk"])
 def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
     """A kernel's output carries no grad_fn, so a backward pass through it
-    would drop its inputs' gradients silently: under grad, the decode and
-    SSD wrappers, given an input that requires grad, raise (naming what
-    would lift the refusal), before their device check (so CPU tensors show
-    it); under no_grad the same call reaches the device check as before,
-    and nothing launches.  Flash attention no longer refuses: it has its
-    backward kernel (``_flash_builds_a_graph_under_grad``)."""
+    would drop its inputs' gradients silently: under grad, the decode
+    wrapper, given an input that requires grad, raises (naming what would
+    lift the refusal), before its device check (so CPU tensors show it);
+    under no_grad the same call reaches the device check as before, and
+    nothing launches.  Flash attention and the SSD pass no longer refuse:
+    they have their backward kernels (``_flash_builds_a_graph_under_grad``,
+    ``_ssd_builds_a_graph_under_grad``)."""
     if name == "flash_attention":
         _flash_builds_a_graph_under_grad()
+        return
+    if name == "ssd_intra_chunk":
+        _ssd_builds_a_graph_under_grad()
         return
     fn, args, kw = _wrapper_calls()[name]
     grad_args = [a.clone().requires_grad_(True) if i == 0 else a
@@ -277,3 +302,41 @@ def test_chip_smoke_checks_the_reference_shape_lists():
     assert chip_smoke.SHAPES == SHAPES
     assert chip_smoke.DECODE_SHAPES == DECODE_SHAPES
     assert chip_smoke.SSD_SHAPES == SSD_SHAPES
+    # the SSD backward's training shapes are the training cells' SSD calls
+    from repro_torch.configs import get_config
+    want = []
+    for aid, (b, t) in chip_smoke.SSM_TRAIN_BATCH.items():
+        cfg = get_config(aid)
+        s = cfg.ssm
+        want.append((b, t, s.n_heads(cfg.d_model), s.head_dim, s.d_state,
+                     s.chunk))
+    assert chip_smoke.SSD_TRAIN == want
+
+
+def test_every_kernel_library_exports_its_wrappers_entry_points():
+    """Each library ``_build.KERNELS`` builds is loaded by a wrapper whose
+    ctypes signature matches the C entry point in its source, argument for
+    argument (a pointer as ``c_void_p``, an int as ``c_int``, ...): ctypes
+    would pass a mismatched argument on without a word."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build, ssd_scan
+    ctype = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_longlong: "long long", ctypes.c_float: "float"}
+    loaded = {"flash_attention": fa._SIGNATURES,
+              "flash_attention_bwd": fa._BWD_SIGNATURES,
+              "decode_attention": da._SIGNATURES,
+              "ssd_intra_chunk": ssd_scan._SIGNATURES,
+              "ssd_intra_chunk_bwd": ssd_scan._BWD_SIGNATURES}
+    assert set(loaded) == set(_build.KERNELS)
+    for lib, sigs in loaded.items():
+        src = (_build.CSRC / f"{lib}.cu").read_text()
+        for fn, argtypes in sigs.items():
+            m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src)
+            assert m, f"{lib}.cu has no entry point {fn}"
+            params = [p.strip() for p in m.group(1).split(",")]
+            kinds = ["ptr" if "*" in p else
+                     re.sub(r"\s+\w+$", "", p).replace("const ", "")
+                     for p in params]
+            assert kinds == [ctype[t] for t in argtypes], (lib, fn, kinds)
