@@ -12,7 +12,7 @@ each of which exits non-zero when it fails:
    backward) are built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, in parallel), and ptxas's registers and spill bytes are logged per
    instantiation (a tensor-core instantiation that spills fails: bf16
-   attention forward and backward, the TF32 SSD pass);
+   attention forward and backward, the TF32 SSD pass and its backward);
 2. each CUDA kernel against its plain PyTorch version on the card: the shape
    lists of ``tests/test_kernels.py`` (attention in fp32 and bf16 at its
    ``TOL``, the SSD pass and the whole scan at its atol 1e-4), then the
@@ -31,10 +31,13 @@ each of which exits non-zero when it fails:
    and of mixtral at 39, at the bf16 ``TOL``; the SSD backward kernel
    against ``ref.ssd_intra_chunk_bwd`` at atol 1e-4 (the reference's shape
    list, mamba2-780m's and hymba-1.5b's training shapes, a 39-token chunk,
-   the strong-decay case; two calls give the same bits), the SSD forward
-   kernel's outputs and the whole scan's outputs at those shapes too, and
-   the whole scan's gradients through it against autograd of
-   ``ref.ssd_chunked``, with and without an incoming state;
+   the strong-decay case; two calls give the same bits; and against its
+   arithmetic on the CPU, ``ref.ssd_intra_chunk_bwd_tf32``), the SSD
+   forward kernel's outputs and the whole scan's outputs at those shapes
+   too, and the whole scan's gradients through it against autograd of
+   ``ref.ssd_chunked``, with and without an incoming state; then each
+   backward launch's device time by kernel name at the two training
+   shapes of each backward kernel (``torch.profiler``);
 3. calibrate and plan, the paper's analyzer loop: ``Profiler.profile_kernels``
    on ``cuda:0`` sweeps the three kernels through ``ops`` in fp32 at the JAX
    package's ``DEFAULT_KERNEL_SHAPES`` and the serving shapes timed in 5,
@@ -111,7 +114,9 @@ each of which exits non-zero when it fails:
    ``ref.attention_lse_naive``) on the reference's shape list in fp32 and
    bf16 and at the training shapes of gemma-2b (B=2, T=1024) and
    hymba-1.5b (B=1, T=2048, window 1024) (checked with the other kernels
-   in phase 2); ``repro_torch.launch.train`` at its defaults
+   in phase 2; in bf16 also against its arithmetic,
+   ``ref.attention_bwd_split``, and two calls give the same bits);
+   ``repro_torch.launch.train`` at its defaults
    (reduced gemma-2b, 200 steps: the loss falls, checkpoints every 50
    steps) and a second run resuming from its last checkpoint; gemma-2b at
    full width and 2 layers, loss and gradients through the kernels against
@@ -388,7 +393,8 @@ def check_ssd_bwd(shape, seed, a_scale=1.0) -> tuple[float, float]:
     ``ref.ssd_intra_chunk`` at this shape, and the backward kernel against
     ``ref.ssd_intra_chunk_bwd`` from the same operands and seeded output
     gradients, both at atol 1e-4 (two backward calls give the same bits: no
-    atomics); then the whole scan through ``SSDIntraChunkFn`` on the kernels
+    atomics), and against its arithmetic ``ref.ssd_intra_chunk_bwd_tf32``
+    at atol 1e-4; then the whole scan through ``SSDIntraChunkFn`` on the kernels
     against ``ref.ssd_chunked``, with and without an incoming state: its
     outputs (y, final state) at atol 1e-4, and its gradients (x, dt, A, B,
     C, D, h0) through ``torch.autograd.grad`` at atol 1e-4 plus 1e-4 of each
@@ -415,6 +421,10 @@ def check_ssd_bwd(shape, seed, a_scale=1.0) -> tuple[float, float]:
     again = ssd_scan.ssd_intra_chunk_bwd(*ops_, dy, dstates, nh=nh, hd=hd)
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
         raise AssertionError(f"ssd_intra_chunk_bwd {shape}: two calls part")
+    model = ref.ssd_intra_chunk_bwd_tf32(*ops_, dy, dstates, nh=nh, hd=hd)
+    for part, g, w in zip(("dxdt", "ddacs", "dB", "dC"), got, model):
+        _check(f"ssd_intra_chunk_bwd {shape} {part} vs its arithmetic", g, w,
+               SSD_ATOL, 0.0)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     h0 = torch.randn((b, nh, hd, n), generator=gen, device="cuda") * 0.1
     gy = torch.randn(x.shape, generator=gen, device="cuda")
@@ -802,7 +812,8 @@ PTD_LIMIT = {"gemma-2b": 1e-1, "mamba2-780m": 2e-1, QWEN3: 2e-1,
 
 OUR_KERNELS = ("flash_bf16", "flash_f32", "decode_split", "decode_combine",
                "ssd_intra_chunk_kernel", "bwd_delta", "bwd_dkdv", "bwd_dq",
-               "ssd_bwd_")
+               "bwd_dkdv_wg", "bwd_dkdv_sum", "bwd_dq_wg", "ssd_bwd_scores",
+               "ssd_bwd_head", "ssd_bwd_sum", "ssd_bwd_reduce")
 
 
 def _profile(fn, reps: int) -> dict | None:
@@ -1920,7 +1931,10 @@ def check_flash_bwd(b, tq, tk, hq, hkv, d, win, caus, dtype, lens, seed,
     """The forward's LSE and output against ``ref.attention_lse_naive``
     (``TOL``), then dQ/dK/dV of the backward kernel against
     ``ref.attention_bwd_naive`` from the kernel's own output and LSE
-    (``BWD_TOL``); returns the backward's largest error."""
+    (``BWD_TOL``); two calls give the same bits (no atomics); in bf16 also
+    against the kernel's arithmetic ``ref.attention_bwd_split``
+    (``BWD_TOL``).  Returns the backward's largest error against the plain
+    version."""
     args, kw = flash_case(b, tq, tk, hq, hkv, d, win, caus, dtype, lens,
                           seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 5000)
@@ -1931,8 +1945,17 @@ def check_flash_bwd(b, tq, tk, hq, hkv, d, win, caus, dtype, lens, seed,
     _check(f"flash lse {tag}", lse, want_lse, TOL[dtype])
     got = fa.flash_attention_bwd(*args, o, lse, do, **kw)
     want = ref.attention_bwd_naive(*args, o, lse, do, **kw)
-    return max(_check(f"flash bwd {tag} d{n}", g, w, BWD_TOL[dtype])
-               for n, g, w in zip("qkv", got, want))
+    err = max(_check(f"flash bwd {tag} d{n}", g, w, BWD_TOL[dtype])
+              for n, g, w in zip("qkv", got, want))
+    again = fa.flash_attention_bwd(*args, o, lse, do, **kw)
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"flash bwd {tag}: two calls part")
+    if dtype == torch.bfloat16:
+        model = ref.attention_bwd_split(*args, o, lse, do, **kw)
+        for n, g, w in zip("qkv", got, model):
+            _check(f"flash bwd {tag} d{n} vs its arithmetic", g, w,
+                   BWD_TOL[dtype])
+    return err
 
 
 def check_backward() -> float:
@@ -1970,6 +1993,48 @@ def check_backward() -> float:
         train[dtype] = max(train[dtype], err)
     torch.cuda.synchronize()
     return train[torch.bfloat16]
+
+
+def _by_name(r: dict | None) -> str:
+    """A ``_profile`` result's device ms a call by kernel name."""
+    if r is None:
+        return "not measured (the profiler saw no kernels)"
+    return "; ".join(f"{k[:40]} {v:.4f} ms" for k, v in r["by_name"].items())
+
+
+def bwd_launch_times(smi: str) -> None:
+    """Each backward launch's device time by kernel name (``torch.profiler``
+    over 5 calls, ms a call) at the training shapes of both backward
+    kernels: flash at gemma-2b's (B=2, T=1024) and hymba-1.5b's (B=1,
+    T=2048, window 1024) in bf16, with ``bwd_plan``'s splits; the SSD pass
+    at mamba2-780m's and hymba-1.5b's, with its head groups."""
+    hq, hkv, hd, win = HYMBA_ATTN
+    hb, ht = SSM_TRAIN_BATCH["hymba-1.5b"]
+    for tag, b, t, (nq, nkv, d), w in (
+            ("gemma-2b", TRAIN_B, TRAIN_T, (HQ, HKV, HD), None),
+            ("hymba-1.5b", hb, ht, (hq, hkv, hd), win)):
+        args, kw = flash_case(b, t, t, nq, nkv, d, w, True, torch.bfloat16,
+                              [t] * b, 1750)
+        gen = torch.Generator(device="cuda").manual_seed(1751)
+        do = _randn(args[0].shape, torch.bfloat16, gen)
+        o, lse = fa.flash_attention_fwd(*args, with_lse=True, **kw)
+        plan = fa.bwd_plan(b, t, t, nq, nkv, d, causal=True, window=w)
+        r = _profile(lambda: fa.flash_attention_bwd(*args, o, lse, do, **kw),
+                     5)
+        log(f"flash bwd launches, {tag} training B={b} T={t} window={w} "
+            f"(splits {plan['splits']}, {plan['blocks']} dK/dV blocks): "
+            f"{_by_name(r)} [{smi}]")
+    for tag, shape in zip(SSM_TRAIN_BATCH, SSD_TRAIN):
+        b, t, nh, hd, n, chunk = shape
+        ops_ = ssd_scan.chunk_operands(*ssd_case(b, t, nh, hd, n, 1760)[:5],
+                                       chunk)
+        dy, dstates = _bwd_case(ops_, nh, hd, 1761)
+        plan = ssd_scan.bwd_plan(b, *ops_[0].shape[1:3], nh, n, hd)
+        r = _profile(lambda: ssd_scan.ssd_intra_chunk_bwd(
+            *ops_, dy, dstates, nh=nh, hd=hd), 5)
+        log(f"ssd bwd launches, {tag} training {shape} (heads per group "
+            f"{plan['heads_per_group']}, {plan['blocks']} head blocks): "
+            f"{_by_name(r)} [{smi}]")
 
 
 def time_flash_bwd(flush) -> dict:
@@ -2256,9 +2321,10 @@ def train_phases(smi: str) -> dict:
 
 # the tensor-core instantiations, which must not spill (their accumulators
 # live in registers): bf16 attention and its backward, and every
-# instantiation of the SSD pass (3xTF32)
+# instantiation of the SSD pass and its backward (3xTF32)
 TENSOR_CORE_KERNELS = ("flash_bf16", "decode_split_bf16",
-                       "ssd_intra_chunk_kernel", "bwd_dkdv_tc", "bwd_dq_tc")
+                       "ssd_intra_chunk_kernel", "bwd_dkdv_wg", "bwd_dq_wg",
+                       "ssd_bwd_scores", "ssd_bwd_head", "ssd_bwd_reduce")
 
 
 def log_ptxas(kname: str, report: str) -> None:
@@ -2267,23 +2333,31 @@ def log_ptxas(kname: str, report: str) -> None:
     entries = re.findall(r"Compiling entry function '(\w+)'.*?"
                          r"(\d+) bytes spill stores.*?Used (\d+) registers",
                          report, flags=re.S)
-    names = [n for n, _, _ in entries]
+    # ptxas's advisories (wgmma serialised, ...), by kernel
+    advisories = re.findall(r"Performance Loss: (.*) in the function '(\w+)'",
+                            report)
+    names = [n for n, _, _ in entries] + [n for _, n in advisories]
     try:
         names = subprocess.run(["c++filt"], input="\n".join(names),
                                capture_output=True, text=True, check=True,
                                timeout=60).stdout.split("\n")
     except (OSError, subprocess.SubprocessError):
         pass                                 # keep the mangled names
+    short = [re.sub(r"\(.*", "", n.replace("(anonymous namespace)::", ""))
+             for n in names]
     log(f"  ptxas {kname}: {len(entries)} instantiations")
-    for name, (_, spill, regs) in zip(names, entries):
-        short = re.sub(r"\(.*", "", name.replace("(anonymous namespace)::",
-                                                  ""))
-        log(f"    {short}: {regs} registers, {spill} bytes spill stores")
+    spilled = []
+    for name, sname, (_, spill, regs) in zip(names, short, entries):
+        log(f"    {sname}: {regs} registers, {spill} bytes spill stores")
         if int(spill) and any(k in name for k in TENSOR_CORE_KERNELS):
-            raise AssertionError(f"{short} spills {spill} bytes")
+            spilled.append(f"{sname} spills {spill} bytes")
+    for sname, (what, _) in zip(short[len(entries):], advisories):
+        log(f"    advisory {sname}: {what}")
     for line in report.splitlines():
         if "warning" in line.lower():
             log(f"    {line.strip()}")
+    if spilled:
+        raise AssertionError("; ".join(spilled))
 
 
 def main() -> int:
@@ -2312,6 +2386,7 @@ def main() -> int:
     worst = check_kernels()
     worst["flash_attention_bwd"] = check_backward()
     worst["ssd_intra_chunk_bwd"] = check_ssd_backward()
+    bwd_launch_times(smi)
     moe_err = check_moe()
     log(f"moe grouped step vs dense oracle: {len(MOE_CASES)} cases, largest "
         f"max|err| {moe_err:.3e} within TOL {TOL[torch.bfloat16]}")

@@ -14,46 +14,59 @@
 // from the forward's output O and its natural-log LSE (flash_attention.cu's
 // `lse` output), delta = rowsum(dO * O), P = exp(S * scale - lse) (0 where
 // masked), dV = P^T dO, dP = dO V^T, dS = P * (dP - delta),
-// dQ = dS K * scale, dK = dS^T Q * scale.  Three launches:
-//   * bwd_delta: delta, fp32 (B, Hq, Tq), one warp per row;
-//   * dK/dV: one block per (key tile, kv head, batch).  It keeps its K and
-//     V tiles in shared memory and its dK and dV in registers, and walks
-//     the GQA group's query heads and their query tiles, so that the G
-//     heads of one kv head sum into dK and dV without atomics (gemma-2b: 8
-//     query heads over one kv head);
-//   * dQ: one block per (query tile, head, batch), walking the key tiles
-//     with dQ in registers.  It recomputes S and dP, which the dK/dV kernel
-//     computed too: a second pass costs those two products again but needs
-//     no atomics and no (B, Hq, Tq, Tk) buffer.
-// Tiles that fail the mask as a whole are skipped with the forward's `run`
-// test (flash_attention.py:63-66).
+// dQ = dS K * scale, dK = dS^T Q * scale.  Tiles that fail the mask as a
+// whole are skipped with the forward's `run` test (flash_attention.py:
+// 63-66).
 //
 // What bounds it on the card: the five products, 10 * D FLOPs per unmasked
 // (query, key) pair and head, against about 2 * (4 Tq Hq + 4 Tk Hkv) * D
-// bytes in bf16: at gemma-2b's training shape (T = 1024, D = 256, causal)
+// bytes in bf16: at gemma-2b's training shape (B = 2, T = 1024, 8 query
+// heads over 1, D = 256, causal) 21.5 GFLOP, 0.0217 ms at the bf16 peak,
 // far above the H100's ridge, so tensor-core FLOPs bound the work.  What
-// the design does about it:
-//   * bf16 (training's dtype) runs the products on tensor cores, mma.sync
-//     m16n8k16 with fp32 accumulators (as decode_attention.cu's split
-//     kernel does).  The dK/dV block owns 16 keys and has four warps: each
-//     computes S^T and dP^T for its 16 of a 64-query tile, writes P^T and
-//     dS^T to shared memory in bf16, and then takes a quarter of D's
-//     8-column tiles of dV += P^T dO and dK += dS^T Q over all 64 queries.
-//     Sixteen keys a block keep gemma-2b's (B * Tk / 16 =) 128 blocks on
-//     132 SMs, one a block each, so the block copies its next query tile
-//     in (cp.async, two stages) while it computes this one.  The dQ block owns 64 query rows, 16 a warp, and walks
-//     32-key tiles; dS stays in registers as the A operand of dQ += dS K.
-//     Tiles are row-major in shared memory with a pitch of D + 8 (a
-//     conflict-free ldmatrix), copied 16 bytes at a time, rows past the
-//     tensor zero-filled;
+// the design does about it (bf16, training's dtype; ref.attention_bwd_split
+// is its arithmetic on the CPU):
+//   * every product runs on wgmma with fp32 accumulators, 64-row tiles of
+//     keys and queries in the forward's 128-byte-swizzled bf16 layout
+//     (head dims below 64 zero-padded to 64);
+//   * dK/dV: one block per (key tile, kv head, split of the GQA group,
+//     batch), two warpgroups.  Warpgroup 0 computes S^T = K Q^T and P,
+//     warpgroup 1 dP^T = V dO^T (both wgmma m64n64k16 from shared memory);
+//     P crosses to warpgroup 1 through shared memory (fp32, one slot a
+//     thread), which forms dS.  Each then feeds its result from registers,
+//     rounded to bf16, as wgmma's A operand: dV += P^T dO on warpgroup 0,
+//     dK += dS^T Q on warpgroup 1 (m64nDk16, the Q/dO tile MN-major).  So
+//     each warpgroup holds one 64 x D fp32 accumulator: at D = 256 that is
+//     128 registers a thread, where one warpgroup holding both would need
+//     256 before S and dP.  The block walks its heads' query tiles with
+//     the next Q/dO tile in flight (cp.async, two stages; 218 KB of shared
+//     memory at D = 256);
+//   * under MQA/GQA the kv heads alone give too few blocks (gemma-2b: 16
+//     key tiles x 1 kv head x 2 = 32 on 132 SMs), so the group's query
+//     heads are split across blocks (flash_attention.py::bwd_plan: 8
+//     splits there, 256 blocks).  Each split writes fp32 partials of dK
+//     and dV, and bwd_dkdv_sum adds them in split order; one split writes
+//     bf16 dK/dV itself.  Blocks start with the first key tile, which the
+//     most causal query tiles reach;
+//   * dQ takes dS from the dK/dV kernel: warpgroup 1 writes each dS tile,
+//     bf16, to a scratch of the passing (query tile, key tile) pairs
+//     (gemma-2b: 136 tiles of 8 KB per head and batch, 17.8 MB), and
+//     bwd_dq_wg runs dQ = dS K * scale as wgmma (dS by ldmatrix into
+//     registers, K MN-major), one warpgroup per 64 query rows, the key
+//     tiles double-buffered.  A separate pass that recomputed S and dP
+//     would run seven products instead of five (about 30 GFLOP at
+//     gemma-2b's shape) and hold three accumulators at once;
+//   * no atomics: every sum runs in a fixed order, so two calls give the
+//     same bits;
 //   * P and dS are rounded to bf16 for their products, as FlashAttention-2
 //     rounds them; the plain version keeps fp32 (the tolerance in
 //     chip_smoke.py says so);
 //   * fp32 keeps scalar CUDA-core kernels (one (query, key) dot product or
 //     one output element per thread from shared memory): tensor cores would
 //     not hold the fp32 tolerance.
-// The first version ran bf16 on those scalar kernels too, at 8.79 ms for
-// gemma-2b's training shape (PERF.md, PR 19).
+// A bf16 call is four launches (three with one split): delta, dK/dV, the
+// sum of the splits, dQ.  The versions it replaces took 8.7876 ms (scalar)
+// and 0.6055 ms (mma.sync m16n8k16, dQ recomputing S and dP) at gemma-2b's
+// training shape on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
 
 #include <type_traits>
 
@@ -301,128 +314,152 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: mma.sync -------------------------------------------------------
+
+// ---- bf16: wgmma -----------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int TC_NT = 128;                 // threads: four warps
-constexpr int TC_KT = 16, TC_QT = 64;      // dK/dV block: keys, query tile
-constexpr int TC_QR = 64, TC_KR = 32;      // dQ block: query rows, key tile
-constexpr int TC_PP = TC_QT + 8;           // pitch of the P^T / dS^T tiles
+constexpr int WG = attn::NT;       // threads of a warpgroup
+constexpr int BT = 64;             // keys or queries per tile: wgmma's M
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct TcSmem {
-  static constexpr int P = D + 8;          // row pitch: conflict-free ldmatrix
-  // K and V; two stages of Q, dO, LSE and delta; P^T and dS^T
-  static constexpr size_t dkdv = 2 * (size_t(2 * TC_KT + 4 * TC_QT) * P +
-                                      2 * size_t(TC_KT) * TC_PP) +
-                                 4 * 4 * size_t(TC_QT);
-  static constexpr size_t dq = 2 * size_t(2 * TC_QR + 2 * TC_KR) * P +
-                               4 * 2 * size_t(TC_QR);
+struct Wg {
+  static constexpr int DP = (D + 63) / 64 * 64;  // whole 128-byte rows
+  static constexpr int TILE = BT * DP;           // bf16 values of a tile
+  static constexpr int DS_TILE = BT * BT;        // bf16 values of a dS tile
+  // dK/dV block: K, V and two stages of Q and dO; the P exchange (fp32, 32
+  // values a thread of a warpgroup); a dS tile; two stages of lse and
+  // delta; room to align the base to 1024 bytes (the swizzle's period)
+  static constexpr int DKDV_SMEM =
+      6 * TILE * 2 + 32 * WG * 4 + DS_TILE * 2 + 2 * 2 * BT * 4 + 1024;
+  // dQ block: two stages of a K tile and a dS tile
+  static constexpr int DQ_SMEM = 2 * (TILE + DS_TILE) * 2 + 1024;
 };
 
-// `n` <= ROWS rows of D bf16 values, `stride` elements apart, into a shared
-// tile of pitch D + 8 by cp.async, 16 bytes a copy; rows n..ROWS-1 become 0
-// (a row of garbage would give NaN * 0 in the products).  The caller
-// commits and waits.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tc(bf16* dst, const bf16* src,
-                                        long long stride, int n) {
-  constexpr int CH = D / 8, P = D + 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += TC_NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r < n;
-    ptx::cp_async16(dst + r * P + c, ok ? src + r * stride + c : src, ok);
-  }
-}
-
-// `n` <= ROWS fp32 values into shared memory by cp.async, 0 past n.
-template <int ROWS>
-__device__ __forceinline__ void load_row_f32(float* dst, const float* src,
-                                             int n) {
-  for (int i = threadIdx.x; i < ROWS; i += TC_NT)
-    ptx::cp_async4(dst + i, i < n ? src + i : src, i < n);
-}
-
-// The contiguous range [first, last] of `n_tiles` tiles of `width` whose
-// rows pass the mask against the fixed range [lo, hi] (queries against a
-// key tile, or keys against a query tile); last < first when none does.
+// The contiguous range [first, last] of tiles whose `run` test passes;
+// last < first when none does.
 struct TileRange {
   int first, last;
 };
-__device__ __forceinline__ TileRange passing_q_tiles(
-    const Mask& mask, long long q_offset, int n_tiles, int width, int k_lo,
-    int k_hi) {
+// query tiles against the key range [k_lo, k_hi]
+__device__ __forceinline__ TileRange q_tiles(const Mask& mask, int q_offset,
+                                             int nqt, int k_lo, int k_hi) {
   TileRange r{0, -1};
-  for (int i = 0; i < n_tiles; ++i) {
-    const long long q_lo = q_offset + (long long)i * width;
-    if (mask.run(q_lo, q_lo + width - 1, k_lo, k_hi)) {
+  for (int i = 0; i < nqt; ++i) {
+    const long long q_lo = (long long)q_offset + i * BT;
+    if (mask.run(q_lo, q_lo + BT - 1, k_lo, k_hi)) {
       if (r.last < r.first) r.first = i;
       r.last = i;
     }
   }
   return r;
 }
+// key tiles against the query tile starting at q_lo
+__device__ __forceinline__ TileRange k_tiles(const Mask& mask, long long q_lo,
+                                             int nkt) {
+  TileRange r{0, -1};
+  for (int j = 0; j < nkt; ++j) {
+    if (mask.run(q_lo, q_lo + BT - 1, (long long)j * BT,
+                 (long long)j * BT + BT - 1)) {
+      if (r.last < r.first) r.first = j;
+      r.last = j;
+    }
+  }
+  return r;
+}
+// The first key tile of the query tile at q_lo in the dS scratch: the first
+// that reaches into the window, whatever the lengths
+// (flash_attention.py::bwd_plan lays the scratch out by the same rule).
+__device__ __forceinline__ int ds_first(long long q_lo, long long window,
+                                        int nkt) {
+  for (int j = 0; j < nkt; ++j)
+    if ((long long)j * BT + BT - 1 > q_lo - window) return j;
+  return nkt;
+}
+__device__ __forceinline__ long long ds_tile(int b, int h, int qt, int Hq,
+                                             int nqt, int ds_run) {
+  return (((long long)b * Hq + h) * nqt + qt) * ds_run;
+}
 
+// At D <= 64 two blocks share an SM (74 KB of shared memory each), which
+// caps a thread at 128 registers.
 template <int D>
-__global__ void __launch_bounds__(TC_NT)
-bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(2 * WG, Wg<D>::DP == 64 ? 2 : 1)
+bwd_dkdv_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             const int* __restrict__ lengths, bf16* __restrict__ dk,
-            bf16* __restrict__ dv, int Tq, int Tk, int Hq, int G,
-            long long q_sb, long long q_st, long long k_sb, long long k_st,
-            long long v_sb, long long v_st, long long do_sb, long long do_st,
-            int causal, int q_offset, int window, float scale) {
-  constexpr int P = TcSmem<D>::P, PP = TC_PP;
-  constexpr int NT8 = D / 8;               // 8-column tiles of dK and dV
-  constexpr int PER = (NT8 + 3) / 4;       // of them per warp
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_tc);   // [KT][P]
-  bf16* sv = sk + TC_KT * P;                     // [KT][P]
-  bf16* sq0 = sv + TC_KT * P;                    // 2 stages of [QT][P]
-  bf16* sdo0 = sq0 + 2 * TC_QT * P;              // 2 stages of [QT][P]
-  bf16* sp = sdo0 + 2 * TC_QT * P;               // P^T [KT][PP]
-  bf16* sds = sp + TC_KT * PP;                   // dS^T [KT][PP]
-  float* slse0 = reinterpret_cast<float*>(sds + TC_KT * PP);  // 2 x [QT]
-  float* sdel0 = slse0 + 2 * TC_QT;                           // 2 x [QT]
+            bf16* __restrict__ dv, float* __restrict__ part,
+            bf16* __restrict__ dsbuf, int B, int Tq, int Tk, int Hq, int Hkv,
+            int ns, int ds_run, long long q_sb, long long q_st,
+            long long k_sb, long long k_st, long long v_sb, long long v_st,
+            long long do_sb, long long do_st, int causal, int q_offset,
+            int window, float scale) {
+  using Cfg = Wg<D>;
+  constexpr int DP = Cfg::DP, TILE = Cfg::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (ptx::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sk = reinterpret_cast<bf16*>(base);
+  bf16* sv = sk + TILE;
+  bf16* sqd = sv + TILE;  // stage s: Q at sqd + 2 s TILE, dO right after it
+  float* sp = reinterpret_cast<float*>(sqd + 4 * TILE);  // [32][WG]
+  bf16* sds = reinterpret_cast<bf16*>(sp + 32 * WG);     // [query][key]
+  float* sml = reinterpret_cast<float*>(sds + Cfg::DS_TILE);
 
-  const int k0 = blockIdx.x * TC_KT, hk = blockIdx.y, b = blockIdx.z;
-  const int Hkv = gridDim.y, nk = min(TC_KT, Tk - k0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int kt = blockIdx.z, b = blockIdx.y;
+  const int hk = blockIdx.x % Hkv, split = blockIdx.x / Hkv;
+  const int G = Hq / Hkv, k0 = kt * BT, nk = min(BT, Tk - k0);
+  const int nqt = (Tq + BT - 1) / BT, nkt = (Tk + BT - 1) / BT;
+  const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 + g;  // this thread's keys: row0, row0 + 8
   const Mask mask{lengths ? min(lengths[b], Tk) : Tk, window, causal};
-  load_tc<TC_KT, D>(sk, k + b * k_sb + k0 * k_st + (long long)hk * D, k_st,
-                    nk);
-  load_tc<TC_KT, D>(sv, v + b * v_sb + k0 * v_st + (long long)hk * D, v_st,
-                    nk);
-  float dk_acc[PER][4], dv_acc[PER][4];
-#pragma unroll
-  for (int i = 0; i < PER; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
-  // the items: (query head of the group, query tile that passes the mask),
-  // walked in order with the next item's tiles copied in (cp.async) while
-  // this one computes
-  const TileRange qr = passing_q_tiles(mask, q_offset,
-                                       (Tq + TC_QT - 1) / TC_QT, TC_QT, k0,
-                                       k0 + TC_KT - 1);
-  const int n_run = qr.last - qr.first + 1, n_items = G * max(n_run, 0);
+  if constexpr (D < DP) {  // the padding columns are never copied
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      attn::zero_pad_b128<BT, D, DP, 2 * WG>(sk + i * TILE);
+  }
+  attn::load_tile_b128<BT, D, 2 * WG>(
+      sk, k + b * k_sb + (long long)k0 * k_st + (long long)hk * D, k_st, nk,
+      threadIdx.x);
+  attn::load_tile_b128<BT, D, 2 * WG>(
+      sv, v + b * v_sb + (long long)k0 * v_st + (long long)hk * D, v_st, nk,
+      threadIdx.x);
+
+  // the items: (query head of this split, query tile that passes the
+  // mask), walked in order, the next item's tiles in flight
+  const TileRange qr = q_tiles(mask, q_offset, nqt, k0, k0 + BT - 1);
+  const int n_run = qr.last - qr.first + 1;
+  const int h_lo = hk * G + split * G / ns;
+  const int h_hi = hk * G + (split + 1) * G / ns;
+  const int n_items = n_run > 0 ? (h_hi - h_lo) * n_run : 0;
   auto load_item = [&](int item, int stage) {
-    const int h = hk * G + item / n_run;
-    const int q0 = (qr.first + item % n_run) * TC_QT;
-    const int nq = min(TC_QT, Tq - q0);
+    const int h = h_lo + item / n_run, q0 = (qr.first + item % n_run) * BT;
+    const int nq = min(BT, Tq - q0);
+    bf16* sq = sqd + 2 * stage * TILE;
+    attn::load_tile_b128<BT, D, 2 * WG>(
+        sq, q + b * q_sb + (long long)q0 * q_st + (long long)h * D, q_st, nq,
+        threadIdx.x);
+    attn::load_tile_b128<BT, D, 2 * WG>(
+        sq + TILE, dout + b * do_sb + (long long)q0 * do_st + (long long)h * D,
+        do_st, nq, threadIdx.x);
     const long long row = ((long long)b * Hq + h) * Tq + q0;
-    load_tc<TC_QT, D>(sq0 + stage * TC_QT * P,
-                      q + b * q_sb + q0 * q_st + (long long)h * D, q_st, nq);
-    load_tc<TC_QT, D>(sdo0 + stage * TC_QT * P,
-                      dout + b * do_sb + q0 * do_st + (long long)h * D,
-                      do_st, nq);
-    load_row_f32<TC_QT>(slse0 + stage * TC_QT, lse + row, nq);
-    load_row_f32<TC_QT>(sdel0 + stage * TC_QT, delta + row, nq);
+    float* ml = sml + stage * 2 * BT;  // lse, then delta; 0 past Tq
+    for (int i = threadIdx.x; i < 2 * BT; i += 2 * WG) {
+      const bool ok = i % BT < nq;
+      ptx::cp_async4(ml + i, ok ? (i < BT ? lse : delta) + row + i % BT : lse,
+                     ok);
+    }
   };
   if (n_items > 0) load_item(0, 0);
   ptx::cp_async_commit();  // with K and V
+
+  float acc[DP / 2];  // dV (warpgroup 0) or dK / scale (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const float scale2 = scale * LOG2E;  // scores in log2 units: exp2 below
 
   for (int item = 0; item < n_items; ++item) {
     const int stage = item & 1;
@@ -433,257 +470,293 @@ bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
       ptx::cp_async_wait<0>();
     }
+    ptx::fence_proxy_async();  // copies (and the zero padding) -> wgmma
     __syncthreads();
-    const bf16* sq = sq0 + stage * TC_QT * P;
-    const bf16* sdo = sdo0 + stage * TC_QT * P;
-    const float* slse = slse0 + stage * TC_QT;
-    const float* sdel = sdel0 + stage * TC_QT;
-    const int q0 = (qr.first + item % n_run) * TC_QT;
-    const long long q_lo = (long long)q_offset + q0;
-    const int nq = min(TC_QT, Tq - q0);
+    const bf16* sq = sqd + 2 * stage * TILE;
+    const bf16* sdo = sq + TILE;
+    const float* slse = sml + stage * 2 * BT;
+    const float* sdel = slse + BT;
+    const int h = h_lo + item / n_run, qt = qr.first + item % n_run;
+    const int q0 = qt * BT, nq = min(BT, Tq - q0), q_lo = q_offset + q0;
 
-    // S^T = K Q^T and dP^T = V dO^T: the block's 16 keys against this
-    // warp's 16 queries, two 8-query n-tiles
-    float s[2][4], dp[2][4];
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): s[4j + e]
+    // is (key row0 + 8 (e >> 1), query 8j + 2t + (e & 1)) of the tiles
+    float s[BT / 2];
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int i = 0; i < BT / 2; ++i) s[i] = 0.f;
+    const bf16* sa = wg == 0 ? sk : sv;
+    const bf16* sb = wg == 0 ? sq : sdo;
+    ptx::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ptx::ldmatrix_x4(ak, sk + (lane & 15) * P + kk * 16 + (lane >> 4) * 8);
-      ptx::ldmatrix_x4(av, sv + (lane & 15) * P + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int row = warp * 16 + n * 8 + (lane & 7);
-        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t bq[2], bd[2];
-        ptx::ldmatrix_x2(bq, sq + row * P + col);
-        ptx::ldmatrix_x2(bd, sdo + row * P + col);
-        ptx::mma_bf16_16816(s[n], ak, bq);
-        ptx::mma_bf16_16816(dp[n], av, bd);
-      }
-    }
-    // P^T and dS^T: s[n][e] is (key g + 8 (e >> 1), query
-    // 16 warp + 8 n + 2t + (e & 1)); pairs of queries go out as bf16x2
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int key = g + 8 * r, qi = warp * 16 + n * 8 + 2 * t;
-        float p[2], ds[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int i = qi + c;
-          p[c] = i < nq && mask.ok(q_lo + i, k0 + key)
-                     ? expf(s[n][2 * r + c] * scale - slse[i]) : 0.f;
-          ds[c] = p[c] * (dp[n][2 * r + c] - sdel[i]);
-        }
-        *reinterpret_cast<uint32_t*>(sp + key * PP + qi) =
-            ptx::pack_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(sds + key * PP + qi) =
-            ptx::pack_bf16(ds[0], ds[1]);
-      }
-    __syncthreads();
+    for (int kk = 0; kk < DP / 16; ++kk)
+      ptx::wgmma_ss<BT>(
+          s, ptx::desc_b128(sa + (kk >> 2) * BT * 64 + (kk & 3) * 16, 1, 64),
+          ptx::desc_b128(sb + (kk >> 2) * BT * 64 + (kk & 3) * 16, 1, 64), 1);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<0>();
 
-    // dV += P^T dO and dK += dS^T Q over the 64 queries: this warp's
-    // 8-column tiles of D (warp, warp + 4, ...)
+    // P^T (warpgroup 0) or dS^T (warpgroup 1) in bf16 as wgmma's A
+    // operand: keys are its rows, queries its k; pairs of queries pack.
+    // Both warpgroups run the same wgmma instructions (a wgmma under a
+    // branch on the warpgroup would be serialised by ptxas).
+    uint32_t pa[BT / 16][4];
+    if (wg == 0) {
+      // tiles wholly inside the mask skip the per-element test
+      const bool inside = nq == BT && k0 + BT <= mask.length &&
+                          (!causal || k0 + BT - 1 <= q_lo) &&
+                          (long long)k0 > (long long)q_lo + BT - 1 - window;
 #pragma unroll
-    for (int kk = 0; kk < TC_QT / 16; ++kk) {
-      uint32_t ap[4], ad[4];
-      ptx::ldmatrix_x4(ap, sp + (lane & 15) * PP + kk * 16 + (lane >> 4) * 8);
-      ptx::ldmatrix_x4(ad, sds + (lane & 15) * PP + kk * 16 +
-                               (lane >> 4) * 8);
+      for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int j = warp + 4 * i;
-        if (j < NT8) {
-          uint32_t bd[2], bq[2];
-          ptx::ldmatrix_x2_trans(bd, sdo + (kk * 16 + (lane & 15)) * P +
-                                         j * 8);
-          ptx::ldmatrix_x2_trans(bq, sq + (kk * 16 + (lane & 15)) * P +
-                                         j * 8);
-          ptx::mma_bf16_16816(dv_acc[i], ap, bd);
-          ptx::mma_bf16_16816(dk_acc[i], ad, bq);
+        for (int r = 0; r < 2; ++r) {
+          const int key = k0 + row0 + 8 * r;
+          float p[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qi = 8 * j + 2 * t + c, e = 4 * j + 2 * r + c;
+            const bool ok =
+                inside || (qi < nq && mask.ok((long long)q_lo + qi, key));
+            p[c] = ok ? ptx::exp2_approx(s[e] * scale2 - slse[qi] * LOG2E)
+                      : 0.f;
+            sp[e * WG + tid] = p[c];
+          }
+          pa[j >> 1][(j & 1) * 2 + r] = ptx::pack_bf16(p[0], p[1]);
         }
-      }
     }
-    __syncthreads();  // this stage and P^T / dS^T are rewritten next
+    ptx::bar_sync(1, 2 * WG);  // P is in shared memory
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int key = row0 + 8 * r;
+          float d[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qi = 8 * j + 2 * t + c, e = 4 * j + 2 * r + c;
+            d[c] = sp[e * WG + tid] * (s[e] - sdel[qi]);
+            // dS, [query][key], for dQ
+            reinterpret_cast<bf16*>(
+                attn::b128_chunk<BT>(sds, qi, key >> 3))[key & 7] =
+                __float2bfloat16(d[c]);
+          }
+          pa[j >> 1][(j & 1) * 2 + r] = ptx::pack_bf16(d[0], d[1]);
+        }
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): 16 queries
+    // per instruction, 2048 bytes apart; the tile's 64-column blocks are
+    // BT * 128 bytes apart
+    const bf16* sm = wg == 0 ? sdo : sq;
+    ptx::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk)
+      ptx::wgmma_rs_tb<DP>(acc, pa[kk],
+                           ptx::desc_b128(sm + kk * 16 * 64, BT * 8, 64), 1);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<0>();
+    if (wg == 1) {  // the dS tile goes to the scratch
+      ptx::bar_sync(2, WG);
+      uint4* dst = reinterpret_cast<uint4*>(
+          dsbuf + (ds_tile(b, h, qt, Hq, nqt, ds_run) + kt -
+                   ds_first(q_lo, window, nkt)) * Cfg::DS_TILE);
+      for (int i = tid; i < Cfg::DS_TILE / 8; i += WG)
+        dst[i] = reinterpret_cast<const uint4*>(sds)[i];
+    }
+    __syncthreads();  // this stage, P and the dS tile are rewritten next
   }
   ptx::cp_async_wait<0>();  // K and V's copies, when no item ran
-  // dv_acc[i][e] is (key g + 8 (e >> 1), column 8 (warp + 4i) + 2t + (e & 1))
+
+  // acc[4j + e] is (key row0 + 8 (e >> 1), column 8j + 2t + (e & 1)): one
+  // split writes dK and dV, several write fp32 partials for bwd_dkdv_sum
+  const bool is_k = wg == 1;
+  const long long n_out = (long long)B * Tk * Hkv * D;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int j = warp + 4 * i;
-    if (j >= NT8) continue;
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int key = g + 8 * r;
-      if (key >= nk) continue;
+      const int key = row0 + 8 * r, col = 8 * j + 2 * t;
+      if (key >= nk || col >= D) continue;
       const long long at =
-          (((long long)b * Tk + k0 + key) * Hkv + hk) * D + j * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + at) = ptx::pack_bf16(
-          dk_acc[i][2 * r] * scale, dk_acc[i][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          ptx::pack_bf16(dv_acc[i][2 * r], dv_acc[i][2 * r + 1]);
+          (((long long)b * Tk + k0 + key) * Hkv + hk) * D + col;
+      const float x0 = acc[4 * j + 2 * r], x1 = acc[4 * j + 2 * r + 1];
+      if (ns == 1) {
+        const float f = is_k ? scale : 1.f;
+        *reinterpret_cast<uint32_t*>((is_k ? dk : dv) + at) =
+            ptx::pack_bf16(x0 * f, x1 * f);
+      } else {
+        *reinterpret_cast<float2*>(
+            part + ((long long)split * 2 + (is_k ? 0 : 1)) * n_out + at) =
+            make_float2(x0, x1);
+      }
     }
+}
+
+// dK and dV from the splits' partials (ns, 2, B, Tk, Hkv, D), added in
+// split order; four values a thread.
+__global__ void __launch_bounds__(256)
+bwd_dkdv_sum(const float4* __restrict__ part, bf16* __restrict__ dk,
+             bf16* __restrict__ dv, long long n4, int ns, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    float4 s = part[which * n4 + i];
+    for (int sp = 1; sp < ns; ++sp) {
+      const float4 x = part[((long long)sp * 2 + which) * n4 + i];
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    const float f = which == 0 ? scale : 1.f;
+    *reinterpret_cast<uint2*>((which == 0 ? dk : dv) + 4 * i) =
+        make_uint2(ptx::pack_bf16(s.x * f, s.y * f),
+                   ptx::pack_bf16(s.z * f, s.w * f));
   }
 }
 
+// dQ = dS K * scale: one warpgroup per (query tile, head, batch) over the
+// key tiles that pass the mask, dS from the dK/dV kernel's scratch.
 template <int D>
-__global__ void __launch_bounds__(TC_NT)
-bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
+__global__ void __launch_bounds__(WG)
+bwd_dq_wg(const bf16* __restrict__ k, const bf16* __restrict__ dsbuf,
           const int* __restrict__ lengths, bf16* __restrict__ dq, int Tq,
-          int Tk, int G, long long q_sb, long long q_st, long long k_sb,
-          long long k_st, long long v_sb, long long v_st, long long do_sb,
-          long long do_st, int causal, int q_offset, int window,
-          float scale) {
-  constexpr int P = TcSmem<D>::P;
-  constexpr int NT8 = D / 8;               // 8-column tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_tc);   // [QR][P]
-  bf16* sdo = sq + TC_QR * P;                    // [QR][P]
-  bf16* sk = sdo + TC_QR * P;                    // [KR][P]
-  bf16* sv = sk + TC_KR * P;                     // [KR][P]
-  float* slse = reinterpret_cast<float*>(sv + TC_KR * P);  // [QR]
-  float* sdel = slse + TC_QR;                              // [QR]
+          int Tk, int Hq, int G, int ds_run, long long k_sb, long long k_st,
+          int causal, int q_offset, int window, float scale) {
+  using Cfg = Wg<D>;
+  constexpr int DP = Cfg::DP, TILE = Cfg::TILE;
+  constexpr int STAGE = TILE + Cfg::DS_TILE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (ptx::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sm = reinterpret_cast<bf16*>(base);  // stage s: K, then dS
 
-  const int q0 = blockIdx.x * TC_QR, h = blockIdx.y, b = blockIdx.z;
-  const int Hq = gridDim.y, hk = h / G, nq = min(TC_QR, Tq - q0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
+  const int q0 = qt * BT, nq = min(BT, Tq - q0), q_lo = q_offset + q0;
+  const int nqt = gridDim.x, nkt = (Tk + BT - 1) / BT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, row0 = warp * 16 + g;
   const Mask mask{lengths ? min(lengths[b], Tk) : Tk, window, causal};
-  load_tc<TC_QR, D>(sq, q + b * q_sb + q0 * q_st + (long long)h * D, q_st,
-                    nq);
-  load_tc<TC_QR, D>(sdo, dout + b * do_sb + q0 * do_st + (long long)h * D,
-                    do_st, nq);
-  const long long row = ((long long)b * Hq + h) * Tq + q0;
-  load_row_f32<TC_QR>(slse, lse + row, nq);
-  load_row_f32<TC_QR>(sdel, delta + row, nq);
-  ptx::cp_async_commit();
-  float acc[NT8][4];
-#pragma unroll
-  for (int j = 0; j < NT8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  const long long q_lo = (long long)q_offset + q0;
-  const bf16* kb = k + b * k_sb + (long long)hk * D;
-  const bf16* vb = v + b * v_sb + (long long)hk * D;
-  const int row0 = warp * 16;              // this warp's 16 query rows
-  for (int k0 = 0; k0 < Tk; k0 += TC_KR) {
-    if (!mask.run(q_lo, q_lo + TC_QR - 1, k0, k0 + TC_KR - 1)) continue;
-    const int nk = min(TC_KR, Tk - k0);
-    __syncthreads();  // the last tile's readers are done
-    load_tc<TC_KR, D>(sk, kb + k0 * k_st, k_st, nk);
-    load_tc<TC_KR, D>(sv, vb + k0 * v_st, v_st, nk);
-    ptx::cp_async_commit();
-    ptx::cp_async_wait<0>();
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys, four 8-key n-tiles
-    float s[4][4], dp[4][4];
+  if constexpr (D < DP) {
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ad[4];
-      ptx::ldmatrix_x4(aq, sq + (row0 + (lane & 15)) * P + kk * 16 +
-                               (lane >> 4) * 8);
-      ptx::ldmatrix_x4(ad, sdo + (row0 + (lane & 15)) * P + kk * 16 +
-                                (lane >> 4) * 8);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int row = n * 8 + (lane & 7);
-        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t bk[2], bv[2];
-        ptx::ldmatrix_x2(bk, sk + row * P + col);
-        ptx::ldmatrix_x2(bv, sv + row * P + col);
-        ptx::mma_bf16_16816(s[n], aq, bk);
-        ptx::mma_bf16_16816(dp[n], ad, bv);
-      }
-    }
-    // dS as the A operand of dQ += dS K: s[n][e] is (row g + 8 (e >> 1),
-    // key 8n + 2t + (e & 1)); keys 16m..16m+15 make k-step m
-    uint32_t a_ds[2][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = row0 + g + 8 * r;
-        float ds[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = k0 + n * 8 + 2 * t + c;
-          const float p = i < nq && mask.ok(q_lo + i, key)
-                              ? expf(s[n][2 * r + c] * scale - slse[i])
-                              : 0.f;
-          ds[c] = p * (dp[n][2 * r + c] - sdel[i]);
-        }
-        a_ds[n >> 1][(n & 1) * 2 + r] = ptx::pack_bf16(ds[0], ds[1]);
-      }
-#pragma unroll
-    for (int m = 0; m < TC_KR / 16; ++m)
-#pragma unroll
-      for (int j = 0; j < NT8; ++j) {
-        uint32_t bk[2];
-        ptx::ldmatrix_x2_trans(bk, sk + (m * 16 + (lane & 15)) * P + j * 8);
-        ptx::mma_bf16_16816(acc[j], a_ds[m], bk);
-      }
+    for (int i = 0; i < 2; ++i)
+      attn::zero_pad_b128<BT, D, DP, WG>(sm + i * STAGE);
   }
-  ptx::cp_async_wait<0>();  // Q's copies, when no key tile ran
-  // acc[j][e] is (row g + 8 (e >> 1), column 8j + 2t + (e & 1))
+  const TileRange kr = k_tiles(mask, q_lo, nkt);
+  const int n = kr.last - kr.first + 1;
+  const int f0 = ds_first(q_lo, window, nkt);
+  const bf16* kb = k + b * k_sb + (long long)hk * D;
+  const bf16* dsq = dsbuf + ds_tile(b, h, qt, Hq, nqt, ds_run) * Cfg::DS_TILE;
+  auto load = [&](int i, int stage) {
+    const int kt = kr.first + i;
+    bf16* st = sm + stage * STAGE;
+    attn::load_tile_b128<BT, D, WG>(st, kb + (long long)kt * BT * k_st, k_st,
+                                    min(BT, Tk - kt * BT), tid);
+    const bf16* src = dsq + (long long)(kt - f0) * Cfg::DS_TILE;
+    for (int c = tid; c < Cfg::DS_TILE / 8; c += WG)
+      ptx::cp_async16(st + TILE + c * 8, src + c * 8, true);
+  };
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  if (n > 0) load(0, 0);
+  ptx::cp_async_commit();
+
+  for (int i = 0; i < n; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < n) {
+      load(i + 1, stage ^ 1);
+      ptx::cp_async_commit();
+      ptx::cp_async_wait<1>();
+    } else {
+      ptx::cp_async_wait<0>();
+    }
+    ptx::fence_proxy_async();
+    __syncthreads();
+    const bf16* sk = sm + stage * STAGE;
+    bf16* sds = sm + stage * STAGE + TILE;
+    // dS's rows 16 warp .. +15 as the A fragments of four k-steps of 16
+    // keys: matrix m = lane / 8 of ldmatrix is rows 8 (m & 1), keys
+    // 8 (m >> 1) of the step
+    uint32_t a[BT / 16][4];
+    const int m = lane >> 3;
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk)
+      ptx::ldmatrix_x4(a[kk], attn::b128_chunk<BT>(
+                                  sds, warp * 16 + (lane & 7) + 8 * (m & 1),
+                                  2 * kk + (m >> 1)));
+    ptx::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk)
+      ptx::wgmma_rs_tb<DP>(acc, a[kk],
+                           ptx::desc_b128(sk + kk * 16 * 64, BT * 8, 64), 1);
+    ptx::wgmma_commit();
+    ptx::wgmma_wait<0>();
+    __syncthreads();  // this stage is rewritten next
+  }
+  ptx::cp_async_wait<0>();
+
+  bf16* qb = dq + ((long long)b * Tq + q0) * Hq * D + (long long)h * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int i = row0 + g + 8 * r;
-    if (i >= nq) continue;
+    const int row = row0 + 8 * r;
+    if (row >= nq) continue;
 #pragma unroll
-    for (int j = 0; j < NT8; ++j)
-      *reinterpret_cast<uint32_t*>(
-          dq + (((long long)b * Tq + q0 + i) * Hq + h) * D + j * 8 + 2 * t) =
-          ptx::pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < D)
+        *reinterpret_cast<uint32_t*>(qb + (long long)row * Hq * D + col) =
+            ptx::pack_bf16(acc[4 * j + 2 * r] * scale,
+                           acc[4 * j + 2 * r + 1] * scale);
+    }
   }
 }
 
 template <int D>
-int launch_tc(const bf16* q, const bf16* k, const bf16* v,
-              const bf16* dout, const float* lse, const float* delta,
-              const int* lengths, bf16* dq, bf16* dk, bf16* dv, int B, int Tq,
-              int Tk, int Hq, int Hkv, long long q_sb, long long q_st,
-              long long k_sb, long long k_st, long long v_sb, long long v_st,
-              long long do_sb, long long do_st, int causal, int q_offset,
-              int window, float scale, cudaStream_t stream) {
-  static const cudaError_t attr1 = attn::allow_smem(bwd_dkdv_tc<D>);
-  static const cudaError_t attr2 = attn::allow_smem(bwd_dq_tc<D>);
+int launch_wg(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+              const float* lse, const float* delta, const int* lengths,
+              bf16* dq, bf16* dk, bf16* dv, float* part, bf16* dsbuf, int B,
+              int Tq, int Tk, int Hq, int Hkv, int ns, int ds_run,
+              long long q_sb, long long q_st, long long k_sb, long long k_st,
+              long long v_sb, long long v_st, long long do_sb,
+              long long do_st, int causal, int q_offset, int window,
+              float scale, cudaStream_t stream) {
+  static const cudaError_t attr1 = attn::allow_smem(bwd_dkdv_wg<D>);
+  static const cudaError_t attr2 = attn::allow_smem(bwd_dq_wg<D>);
   if (attr1 != cudaSuccess) return int(attr1);
   if (attr2 != cudaSuccess) return int(attr2);
-  const int G = Hq / Hkv;
-  bwd_dkdv_tc<D><<<dim3((Tk + TC_KT - 1) / TC_KT, Hkv, B), TC_NT,
-                   TcSmem<D>::dkdv, stream>>>(
-      q, k, v, dout, lse, delta, lengths, dk, dv, Tq, Tk, Hq, G, q_sb, q_st,
-      k_sb, k_st, v_sb, v_st, do_sb, do_st, causal, q_offset, window, scale);
-  const cudaError_t err = cudaGetLastError();
+  const int nqt = (Tq + BT - 1) / BT, nkt = (Tk + BT - 1) / BT;
+  bwd_dkdv_wg<D><<<dim3(ns * Hkv, B, nkt), 2 * WG, Wg<D>::DKDV_SMEM,
+                   stream>>>(
+      q, k, v, dout, lse, delta, lengths, dk, dv, part, dsbuf, B, Tq, Tk, Hq,
+      Hkv, ns, ds_run, q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st,
+      causal, q_offset, window, scale);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  bwd_dq_tc<D><<<dim3((Tq + TC_QR - 1) / TC_QR, Hq, B), TC_NT,
-                 TcSmem<D>::dq, stream>>>(
-      q, k, v, dout, lse, delta, lengths, dq, Tq, Tk, G, q_sb, q_st, k_sb,
-      k_st, v_sb, v_st, do_sb, do_st, causal, q_offset, window, scale);
+  if (ns > 1) {
+    const long long n4 = (long long)B * Tk * Hkv * D / 4;
+    bwd_dkdv_sum<<<unsigned((n4 + 255) / 256), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(part), dk, dv, n4, ns, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  bwd_dq_wg<D><<<dim3(nqt, Hq, B), WG, Wg<D>::DQ_SMEM, stream>>>(
+      k, dsbuf, lengths, dq, Tq, Tk, Hq, Hq / Hkv, ds_run, k_sb, k_st,
+      causal, q_offset, window, scale);
   return int(cudaGetLastError());
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, const void* lengths, void* dq,
-           void* dk, void* dv, void* delta, int B, int Tq, int Tk, int Hq,
-           int Hkv, long long q_sb, long long q_st, long long k_sb,
-           long long k_st, long long v_sb, long long v_st, long long o_sb,
-           long long o_st, long long do_sb, long long do_st, int causal,
-           int q_offset, int window, float scale, cudaStream_t stream) {
+           void* dk, void* dv, void* delta, void* part, void* ds, int B,
+           int Tq, int Tk, int Hq, int Hkv, int ns, int ds_run,
+           long long q_sb, long long q_st, long long k_sb, long long k_st,
+           long long v_sb, long long v_st, long long o_sb, long long o_st,
+           long long do_sb, long long do_st, int causal, int q_offset,
+           int window, float scale, cudaStream_t stream) {
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
@@ -700,11 +773,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return int(err);
 
   if constexpr (std::is_same_v<T, bf16>) {
-    return launch_tc<D>(tq, tk, tv, tdo, flse, fdel, lens,
+    if (ns < 1 || ns > Hq / Hkv || ds_run < 1 || !ds || (ns > 1 && !part))
+      return int(cudaErrorInvalidValue);
+    return launch_wg<D>(tq, tk, tv, tdo, flse, fdel, lens,
                         static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                        static_cast<bf16*>(dv), B, Tq, Tk, Hq, Hkv, q_sb,
-                        q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, causal,
-                        q_offset, window, scale, stream);
+                        static_cast<bf16*>(dv), static_cast<float*>(part),
+                        static_cast<bf16*>(ds), B, Tq, Tk, Hq, Hkv, ns,
+                        ds_run, q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb,
+                        do_st, causal, q_offset, window, scale, stream);
   } else {
     static const cudaError_t attr1 = attn::allow_smem(bwd_dkdv<T, D>);
     static const cudaError_t attr2 = attn::allow_smem(bwd_dq<T, D>);
@@ -737,29 +813,36 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // Strides are in elements, the head and feature axes dense.  `lse` is the
 // forward's dense fp32 (B,Hq,Tq) output; `delta`, dense fp32 (B,Hq,Tq), is
 // scratch the call fills; dq (B,Tq,Hq,D) and dk/dv (B,Tk,Hkv,D) are dense.
-// `lengths` may be null: every key is valid.  Three launches on `stream`;
-// returns the first non-zero cudaGetLastError(), else 0.
+// `lengths` may be null: every key is valid.  bf16 only (fp32 passes null
+// and 1, 1): `n_splits` of the GQA group, `part` the splits' fp32 partials
+// (n_splits, 2, B, Tk, Hkv, D) (null for one split), `ds` the bf16 dS
+// scratch of B * Hq * ceil(Tq / 64) * ds_run tiles of 64 x 64, ds_run the
+// longest run of key tiles a query tile reaches (bwd_plan in
+// flash_attention.py).  Launches on `stream`; returns the first non-zero
+// cudaGetLastError(), else 0.
 extern "C" int flash_attention_bwd(
     int dtype, int D, const void* q, const void* k, const void* v,
     const void* o, const void* dout, const void* lse, const void* lengths,
-    void* dq, void* dk, void* dv, void* delta, int B, int Tq, int Tk, int Hq,
-    int Hkv, long long q_sb, long long q_st, long long k_sb, long long k_st,
+    void* dq, void* dk, void* dv, void* delta, void* part, void* ds, int B,
+    int Tq, int Tk, int Hq, int Hkv, int n_splits, int ds_run,
+    long long q_sb, long long q_st, long long k_sb, long long k_st,
     long long v_sb, long long v_st, long long o_sb, long long o_st,
     long long do_sb, long long do_st, int causal, int q_offset, int window,
     float scale, void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || Hkv <= 0 || Hq % Hkv != 0)
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      B > 65535 || (Tk + BT - 1) / BT > 65535)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     ATTN_DISPATCH_D(D, return launch<float, D>(
-        q, k, v, o, dout, lse, lengths, dq, dk, dv, delta, B, Tq, Tk, Hq,
-        Hkv, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, do_sb, do_st,
-        causal, q_offset, window, scale, st))
+        q, k, v, o, dout, lse, lengths, dq, dk, dv, delta, part, ds, B, Tq,
+        Tk, Hq, Hkv, n_splits, ds_run, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+        o_sb, o_st, do_sb, do_st, causal, q_offset, window, scale, st))
   } else if (dtype == 1) {
     ATTN_DISPATCH_D(D, return launch<__nv_bfloat16, D>(
-        q, k, v, o, dout, lse, lengths, dq, dk, dv, delta, B, Tq, Tk, Hq,
-        Hkv, q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, do_sb, do_st,
-        causal, q_offset, window, scale, st))
+        q, k, v, o, dout, lse, lengths, dq, dk, dv, delta, part, ds, B, Tq,
+        Tk, Hq, Hkv, n_splits, ds_run, q_sb, q_st, k_sb, k_st, v_sb, v_st,
+        o_sb, o_st, do_sb, do_st, causal, q_offset, window, scale, st))
   }
   return int(cudaErrorInvalidValue);
 }

@@ -7,9 +7,13 @@ training differentiates ``ref.attention_blocked`` under ``jax.checkpoint``).
 CUDA tensors only: each kernel launches on the current stream, without a
 synchronisation, into outputs allocated here.  The plain versions are
 ``ref.attention_lse_naive`` and ``ref.attention_bwd_naive`` (``ops`` sends
-CPU tensors to ``ref``).  ``launches`` counts the forward kernel's calls in
-this process, ``bwd_launches`` the backward's (one per call: a backward call
-is three launches, Δ, dK/dV and dQ).
+CPU tensors to ``ref``); ``ref.attention_bwd_split`` is the bf16 backward's
+arithmetic (its tile walk, bf16 roundings and split sums).
+``launches`` counts the forward kernel's calls in this process,
+``bwd_launches`` the backward's (one per call: a bf16 backward call is
+Δ, dK/dV on wgmma over ``bwd_plan``'s splits of the GQA group, the sum of
+the splits' partials where there are several, and dQ from the dK/dV
+kernel's dS tiles; an fp32 call is Δ, dK/dV and dQ).
 """
 
 from __future__ import annotations
@@ -20,11 +24,16 @@ import math
 import torch
 
 from . import _build
-from ._wrap import (DTYPES, check_bthd, check_common, check_lengths,
-                    raise_on_error)
+from ._wrap import (DTYPES, NO_WINDOW, check_bthd, check_common,
+                    check_lengths, raise_on_error)
 
 launches = 0
 bwd_launches = 0
+
+# the backward's tiles (64 keys or queries), and the blocks its dK/dV
+# kernel aims for: two for each of the H100's 132 SMs
+BWD_TILE = 64
+BWD_TARGET_BLOCKS = 2 * 132
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention_fwd": [
@@ -35,7 +44,9 @@ _SIGNATURES = {"flash_attention_fwd": [
 _BWD_SIGNATURES = {"flash_attention_bwd": [
     _I, _I, _P, _P, _P, _P, _P, _P,        # dtype, D, q, k, v, o, do, lse
     _P, _P, _P, _P, _P,                    # lengths, dq, dk, dv, delta
+    _P, _P,                                # split partials, dS scratch
     _I, _I, _I, _I, _I,                    # B, Tq, Tk, Hq, Hkv
+    _I, _I,                                # n_splits, ds_run
     _LL, _LL, _LL, _LL, _LL, _LL,          # (b, t) strides of q, k, v
     _LL, _LL, _LL, _LL,                    # (b, t) strides of o, do
     _I, _I, _I, ctypes.c_float, _P]}       # causal, q_offset, window, scale, stream
@@ -91,6 +102,51 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _ds_range(qt: int, nkt: int, causal: bool, window: int,
+              q_offset: int) -> tuple[int, int]:
+    """The key tiles [first, last] that query tile ``qt`` reaches whatever
+    the lengths: the dS scratch's tiles of that query tile (the kernel's
+    ``ds_first`` is ``first``)."""
+    t = BWD_TILE
+    q_lo, q_hi = q_offset + qt * t, q_offset + qt * t + t - 1
+    first = next((j for j in range(nkt) if j * t + t - 1 > q_lo - window),
+                 nkt)
+    last = min(nkt - 1, q_hi // t) if causal else nkt - 1
+    return first, last
+
+
+def bwd_plan(b: int, tq: int, tk: int, hq: int, hkv: int, d: int, *,
+             causal: bool = True, window: int | None = None,
+             q_offset: int = 0) -> dict:
+    """How the bf16 backward cuts its work, from shapes alone (the lengths
+    stay on the card):
+
+    * ``splits``: the GQA group's query heads go to this many dK/dV blocks
+      per (key tile, kv head, batch), the smallest divisor of the group
+      size that gives ``BWD_TARGET_BLOCKS`` blocks, else the group size;
+      ``blocks`` is the dK/dV grid, ``partial_bytes`` the splits' fp32
+      partials of dK and dV (0 for one split: it writes them itself);
+    * ``ds_run``: the most key tiles one query tile reaches; the dS scratch
+      holds that many 64 x 64 bf16 tiles per (batch, head, query tile),
+      ``ds_bytes`` in all; ``tiles_per_head``: the tiles one query head of
+      one sequence writes there (the dQ kernel's key tiles)."""
+    t = BWD_TILE
+    w = NO_WINDOW if window is None else int(window)
+    g = hq // hkv
+    nqt, nkt = -(-tq // t), -(-tk // t)
+    base = nkt * hkv * b
+    splits = next((s for s in range(1, g + 1)
+                   if g % s == 0 and base * s >= BWD_TARGET_BLOCKS), g)
+    runs = [max(0, last - first + 1) for first, last in
+            (_ds_range(i, nkt, causal, w, q_offset) for i in range(nqt))]
+    ds_run = max(1, max(runs))
+    return dict(splits=splits, blocks=base * splits,
+                partial_bytes=(splits * 2 * b * tk * hkv * d * 4
+                               if splits > 1 else 0),
+                ds_run=ds_run, ds_bytes=b * hq * nqt * ds_run * t * t * 2,
+                tiles_per_head=sum(runs))
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
@@ -119,13 +175,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty((b, tk, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, tk, hkv, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    part = ds = None
+    splits, ds_run = 1, 1
+    if q.dtype == torch.bfloat16:
+        plan = bwd_plan(b, tq, tk, hq, hkv, d, causal=causal, window=window,
+                        q_offset=q_offset)
+        splits, ds_run = plan["splits"], plan["ds_run"]
+        ds = torch.empty(plan["ds_bytes"] // 2, dtype=torch.bfloat16,
+                         device=q.device)
+        if splits > 1:
+            part = torch.empty(plan["partial_bytes"] // 4,
+                               dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_bwd(
         DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         None if lens is None else lens.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        b, tq, tk, hq, hkv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        None if part is None else part.data_ptr(),
+        None if ds is None else ds.data_ptr(),
+        b, tq, tk, hq, hkv, splits, ds_run,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0),
         do.stride(1), int(causal), int(q_offset), w, 1.0 / math.sqrt(d),
         stream)

@@ -9,8 +9,10 @@ Two tiers per op, as in the JAX package:
 ``ssd_intra_chunk`` is the plain version of the SSD intra-chunk kernel alone
 (the body of the Pallas kernel in ``repro/kernels/ssd_scan.py``);
 ``ssd_intra_chunk_tf32`` models that kernel's arithmetic (3xTF32 products
-over its tiles), and ``decode_attention_split`` the decode kernels' split
-algorithm.
+over its tiles), ``ssd_intra_chunk_bwd_tf32`` its backward kernel's,
+``attention_bwd_split`` the bf16 flash backward kernel's (its tile walk,
+bf16 roundings and split sums), and ``decode_attention_split`` the decode
+kernels' split algorithm.
 
 ``ops`` sends CPU tensors here; CUDA tensors go to the hand-written kernels,
 which ``chip_smoke.py`` holds against these functions on the card.
@@ -138,6 +140,69 @@ def attention_bwd_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       _gqa_expand(q, hkv).float()) * scale
     return (dq.reshape(b, tq, hq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def attention_bwd_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0,
+                        lengths: torch.Tensor | None = None,
+                        n_splits: int | None = None,
+                        bf16_products: bool | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The arithmetic of the bf16 backward kernel
+    (``csrc/flash_attention_bwd.cu``) on ``attention_bwd_naive``'s
+    equations: P and dS rounded to bf16 for their products (with
+    ``bf16_products``; by default where q is bf16), dK and dV summed per
+    split of the GQA group (``flash_attention.bwd_plan``'s, or
+    ``n_splits``) over the split's heads and 64-row query tiles in the
+    kernel's order, the splits' fp32 partials added in split order, and dQ
+    as the dQ kernel forms it, the rounded dS tiles times K summed over the
+    64-key tiles in order.  Tiles the kernel skips add exact zeros here."""
+    from .flash_attention import BWD_TILE, bwd_plan
+
+    b, tq, hq, d = q.shape
+    _, tk, hkv, _ = k.shape
+    g = hq // hkv
+    t = BWD_TILE
+    ns = (bwd_plan(b, tq, tk, hq, hkv, d, causal=causal, window=window,
+                   q_offset=q_offset)["splits"]
+          if n_splits is None else n_splits)
+    rnd = q.dtype == torch.bfloat16 if bf16_products is None \
+        else bf16_products
+
+    def r(x):
+        return x.to(torch.bfloat16).float() if rnd else x
+
+    scale = 1.0 / math.sqrt(d)
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             q_offset=q_offset, lengths=lengths)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(
+        b, hkv, g, tq, 1)), 0.0)                         # (b,hkv,g,tq,tk)
+    qg, dog = _gqa_expand(q, hkv).float(), _gqa_expand(do, hkv).float()
+    delta = (dog * _gqa_expand(o, hkv).float()).sum(-1)  # (b,tq,hkv,g)
+    delta = delta.permute(0, 2, 3, 1)[..., None]         # (b,hkv,g,tq,1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    pr, dsr = r(p), r(p * (dp - delta))
+    dk = torch.zeros((b, tk, hkv, d), device=q.device)
+    dv = torch.zeros((b, tk, hkv, d), device=q.device)
+    for split in range(ns):
+        pk, pv = torch.zeros_like(dk), torch.zeros_like(dv)
+        for hh in range(split * g // ns, (split + 1) * g // ns):
+            for q0 in range(0, tq, t):
+                rows = slice(q0, q0 + t)
+                pv += torch.einsum("bhqk,bqhd->bkhd", pr[:, :, hh, rows],
+                                   dog[:, rows, :, hh])
+                pk += torch.einsum("bhqk,bqhd->bkhd", dsr[:, :, hh, rows],
+                                   qg[:, rows, :, hh])
+        dk, dv = dk + pk, dv + pv
+    dq = torch.zeros((b, tq, hkv, g, d), device=q.device)
+    kf = k.float()
+    for k0 in range(0, tk, t):
+        keys = slice(k0, k0 + t)
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", dsr[..., keys], kf[:, keys])
+    return ((dq * scale).reshape(b, tq, hq, d).to(q.dtype),
+            (dk * scale).to(k.dtype), dv.to(v.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -506,6 +571,95 @@ def ssd_intra_chunk_tf32(xdt: torch.Tensor, dacs: torch.Tensor,
         states += _mm_tf32(bd.transpose(3, 4), xh[..., j0:j1, :], split)
     y = y.permute(0, 1, 3, 2, 4).reshape(b, nc, c, nh * hd)
     return y, states
+
+
+def ssd_intra_chunk_bwd_tf32(xdt: torch.Tensor, dacs: torch.Tensor,
+                             B: torch.Tensor, C: torch.Tensor,
+                             dy: torch.Tensor, dstates: torch.Tensor, *,
+                             nh: int, hd: int, split: bool = True,
+                             heads_per_group: int | None = None
+                             ) -> tuple[torch.Tensor, ...]:
+    """The arithmetic of the CUDA SSD backward kernel
+    (``csrc/ssd_intra_chunk_bwd.cu``): ``ssd_intra_chunk_bwd``'s equations
+    with every product in TF32, with ``split`` (the kernel) in 3xTF32, over
+    the kernel's 64 x 64 tiles: Sᵀ = B·Cᵀ per tile pair; per group of
+    ``ssd_scan.bwd_plan``'s heads (or ``heads_per_group``), each head in
+    order and each key tile j: q = B·dstates_h and R = decay ⊙
+    (x̄_h·dstates_hᵀ) over 64-column blocks of the state, then dxdt =
+    decay ⊙ q plus Wᵀ·dy_h over the query tiles i >= j in order, with
+    dWᵀ = x̄_h·dy_hᵀ and Wᵀ = Sᵀ ⊙ Lᵀ (the select before the exp); the
+    group's dW ⊙ L and R summed over its heads in order; then dC = Σ_j dS·B and dB = Σ_i dSᵀ·C over the tiles in
+    order, plus the groups' R in group order.  ``split=False`` is a single
+    TF32 product, which the kernel does not run: the tests show that it
+    misses the fp32 tolerance."""
+    from .ssd_scan import BWD_TILE, bwd_plan
+
+    b, nc, c, _ = xdt.shape
+    n = B.shape[-1]
+    t = BWD_TILE
+    gh = (bwd_plan(b, nc, c, nh, n, hd)["heads_per_group"]
+          if heads_per_group is None else heads_per_group)
+
+    def mm(a, m):
+        return _mm_tf32(a, m, split)
+
+    xh = xdt.float().reshape(b, nc, c, nh, hd)
+    dyh = dy.float().reshape(b, nc, c, nh, hd)
+    dh, B, C, ds = dacs.float(), B.float(), C.float(), dstates.float()
+    decay = torch.exp(dh[:, :, -1:, :] - dh)             # (b,nc,c,nh)
+    tiles = [slice(i, min(i + t, c)) for i in range(0, c, t)]
+    cols = [slice(i, min(i + t, n)) for i in range(0, n, t)]
+    st = {(jt, it): mm(B[:, :, tiles[jt]], C[:, :, tiles[it]].transpose(2, 3))
+          for it in range(len(tiles)) for jt in range(it + 1)}
+    pos = torch.arange(c, device=xdt.device)
+    dxdt = torch.zeros((b, nc, c, nh, hd), device=xdt.device)
+    ddacs = torch.zeros((b, nc, c, nh), device=xdt.device)
+    ds_sum = torch.zeros((b, nc, c, c), device=xdt.device)   # dSᵀ: rows j
+    r_sum = torch.zeros((b, nc, c, n), device=xdt.device)
+    for h0 in range(0, nh, gh):
+        ds_g = torch.zeros_like(ds_sum)
+        r_g = torch.zeros_like(r_sum)
+        for h in range(h0, min(h0 + gh, nh)):
+            da = dh[..., h]                              # (b,nc,c)
+            dd = torch.zeros((b, nc, c), device=xdt.device)
+            es = torch.zeros((b, nc, c), device=xdt.device)
+            for jt, js in enumerate(tiles):
+                xa = xh[:, :, js, h]
+                q = torch.zeros_like(xa)
+                dec = decay[:, :, js, h]
+                for ns_ in cols:
+                    dsn = ds[:, :, h, ns_, :]            # (b,nc,nn,hd)
+                    q = q + mm(B[:, :, js, ns_], dsn)
+                    r_g[..., js, ns_] += mm(xa, dsn.transpose(2, 3)) * \
+                        dec[..., None]
+                es[..., js] = dec * (xa * q).sum(-1)
+                dx = dec[..., None] * q
+                for it in range(jt, len(tiles)):
+                    i_s = tiles[it]
+                    y = dyh[:, :, i_s, h]
+                    dwt = mm(xa, y.transpose(2, 3))      # (b,nc,j,i)
+                    ok = pos[js, None] <= pos[None, i_s]
+                    lt = torch.exp(torch.where(
+                        ok, da[..., None, i_s] - da[..., js, None],
+                        -torch.inf))
+                    wt = st[jt, it] * lt
+                    gt = dwt * wt
+                    ds_g[..., js, i_s] += dwt * lt
+                    dx = dx + mm(wt, y)
+                    dd[..., js] -= gt.sum(-1)
+                    dd[..., i_s] += gt.sum(-2)
+                dxdt[:, :, js, h] = dx
+            ddacs[..., h] = dd - es
+            ddacs[..., -1, h] += es.sum(-1)
+        ds_sum = ds_sum + ds_g
+        r_sum = r_sum + r_g
+    dS = ds_sum.transpose(2, 3)                          # (b,nc,i,j)
+    dC = torch.zeros_like(C)
+    dB = torch.zeros_like(B)
+    for ts in tiles:
+        dC = dC + mm(dS[..., ts], B[:, :, ts])
+        dB = dB + mm(ds_sum[..., ts], C[:, :, ts])
+    return (dxdt.reshape(b, nc, c, nh * hd), ddacs, dB + r_sum, dC)
 
 
 def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,

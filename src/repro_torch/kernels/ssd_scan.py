@@ -16,9 +16,13 @@ operand split in two).  Under grad it runs as ``SSDIntraChunkFn``, whose
 backward is a second hand-written kernel (``csrc/ssd_intra_chunk_bwd.cu``,
 plain version ``ref.ssd_intra_chunk_bwd``), which the JAX package does not
 have: its Pallas kernel has no reverse mode, so its training differentiates
-``ref.ssd_chunked``.  ``launches`` counts the forward kernel's calls of this
-process, ``bwd_launches`` the backward's (one per call: a backward call is
-three launches, scores, per head, and the sum over heads).
+``ref.ssd_chunked``; ``ref.ssd_intra_chunk_bwd_tf32`` models the backward's
+arithmetic (3xTF32 products, the head-group and group sums in its order).
+``launches`` counts the forward kernel's calls of this process,
+``bwd_launches`` the backward's (one per call: a backward call is four
+launches, three of them on TF32 wgmma: the scores C·Bᵀ once per chunk, one
+block per group of ``bwd_plan``'s heads, the sum of the groups' partials,
+and dC = dS·B, dB = dSᵀ·C plus the state term).
 """
 
 from __future__ import annotations
@@ -46,8 +50,40 @@ _SIGNATURES = {"ssd_intra_chunk_fwd": [
     _I, _I, _I, _I, _I, _P]}               # b, nc, c, nh, n, stream
 _BWD_SIGNATURES = {"ssd_intra_chunk_bwd": [
     _I, _P, _P, _P, _P, _P, _P,            # hd, xdt, dacs, B, C, dy, dstates
-    _P, _P, _P, _P, _P, _P, _P,            # dxdt, ddacs, dB, dC, scores, P, R
-    _I, _I, _I, _I, _I, _P]}               # b, nc, c, nh, n, stream
+    _P, _P, _P, _P, _P, _P, _P,            # dxdt, ddacs, dB, dC, scores, dS, R
+    _I, _I, _I, _I, _I, _I, _P]}           # b, nc, c, nh, n, heads/group, stream
+# the backward's tiles (64 rows, keys or state columns); the H100's SMs,
+# each of which holds two head-group blocks at head_dim <= 64 (102 KB of
+# shared memory a block) and one at 128 (198 KB)
+BWD_TILE = 64
+SMS = 132
+
+
+def bwd_plan(b: int, nc: int, c: int, nh: int, n: int, hd: int = 64
+             ) -> dict:
+    """How the backward cuts its work, from shapes alone:
+    ``heads_per_group`` heads go to one block per (group, chunk, batch),
+    the count that minimises the rounds of resident blocks times the heads
+    each block walks (the largest on a tie: the scratches shrink with it);
+    ``groups``, ``blocks``; and the fp32 scratches, in 64 x 64 tiles:
+    ``scores_bytes`` (C·Bᵀ per chunk), ``ds_bytes`` (each group's sum of
+    dW ⊙ L) and ``r_bytes`` (each group's state term of dB)."""
+    t = BWD_TILE
+    slots = SMS * (2 if hd <= 64 else 1)
+
+    def cost(gh: int) -> tuple[int, int]:
+        rounds = -(-(-(-nh // gh) * nc * b) // slots)
+        return rounds * gh, -gh
+
+    gh = min(range(1, nh + 1), key=cost)
+    groups = -(-nh // gh)
+    nt, ncol = -(-c // t), -(-n // t)
+    pairs = nt * (nt + 1) // 2
+    tile = t * t * 4
+    return dict(heads_per_group=gh, groups=groups, blocks=groups * nc * b,
+                scores_bytes=b * nc * pairs * tile,
+                ds_bytes=b * nc * groups * pairs * tile,
+                r_bytes=b * nc * groups * nt * ncol * tile)
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, device) -> None:
@@ -122,8 +158,9 @@ def ssd_intra_chunk_bwd(xdt: torch.Tensor, dacs: torch.Tensor,
     """The backward kernel: from the forward's inputs and the gradients of
     its outputs, dy (b, nc, c, nh*hd) and dstates (b, nc, nh, n, hd), the
     fp32 gradients (dxdt, ddacs, dB, dC) in the inputs' layouts.  Semantics
-    of ``ref.ssd_intra_chunk_bwd``.  The sum over heads into dB and dC runs
-    in a fixed order: two calls give the same bits."""
+    of ``ref.ssd_intra_chunk_bwd``.  The sums over heads into dB and dC run
+    in a fixed order (heads within a group, then groups): two calls give the
+    same bits."""
     global bwd_launches
     b, nc, c, n = _check_operands(xdt, dacs, B, C, nh, hd)
     dy, dstates = _dense(dy), _dense(dstates)
@@ -134,19 +171,17 @@ def ssd_intra_chunk_bwd(xdt: torch.Tensor, dacs: torch.Tensor,
     ddacs = torch.empty_like(dacs)
     dB = torch.empty_like(B)
     dC = torch.empty_like(C)
-    # scratch: each chunk's scores, each head's dW ⊙ L and its term of dB
-    scores = torch.empty((b, nc, c, c), dtype=torch.float32,
-                         device=xdt.device)
-    per_head = torch.empty((b, nc, nh, c, c), dtype=torch.float32,
-                           device=xdt.device)
-    per_head_db = torch.empty((b, nc, nh, c, n), dtype=torch.float32,
-                              device=xdt.device)
+    # scratch: each chunk's scores, each group's dW ⊙ L and dB state term
+    plan = bwd_plan(b, nc, c, nh, n, hd)
+    scores, ds, r = (torch.empty(plan[k] // 4, dtype=torch.float32,
+                                 device=xdt.device)
+                     for k in ("scores_bytes", "ds_bytes", "r_bytes"))
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
     err = lib.ssd_intra_chunk_bwd(
         hd, xdt.data_ptr(), dacs.data_ptr(), B.data_ptr(), C.data_ptr(),
         dy.data_ptr(), dstates.data_ptr(), dxdt.data_ptr(), ddacs.data_ptr(),
-        dB.data_ptr(), dC.data_ptr(), scores.data_ptr(), per_head.data_ptr(),
-        per_head_db.data_ptr(), b, nc, c, nh, n, stream)
+        dB.data_ptr(), dC.data_ptr(), scores.data_ptr(), ds.data_ptr(),
+        r.data_ptr(), b, nc, c, nh, n, plan["heads_per_group"], stream)
     bwd_launches += 1
     raise_on_error(err, "ssd_intra_chunk_bwd")
     return dxdt, ddacs, dB, dC
