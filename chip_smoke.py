@@ -129,7 +129,23 @@ each of which exits non-zero when it fails:
    mamba2-780m``, and 5 full-depth steps each of mamba2-780m (B=2,
    T=1024: exactly 96 forward and 48 backward SSD calls a step) and
    hymba-1.5b (B=1, T=2048: 64 and 32 SSD calls, 64 and 32 flash calls);
-   the loss must fall in each of the three full-depth runs.
+   the loss must fall in each of the three full-depth runs.  Then MoE
+   training: ``torch._grouped_mm``'s gradients (bf16 rows against an fp32
+   expert stack through its bf16 cast, empty groups among them) against a
+   loop of per-expert products; one qwen3-moe-30b-a3b MoE layer at full
+   width over B=2 x T=1024 tokens, the gradients of a random cotangent
+   (router, w_gate, w_up, w_down, x) through ``moe_ep_a2a`` against
+   ``moe_dense`` (relative norm 1e-2) and through its int8 payload against
+   the bf16 one (3e-2), and the assignments kept at capacity factor 1.25;
+   the model at full width and 2 layers, loss and gradients under
+   ``moe_impl="ep_a2a"`` against ``"dense"`` (each token routed apart a
+   near tie, leaves at 5e-2); then qwen3-moe-30b-a3b at full width and 3
+   of its 48 layers (4 run out of memory in the optimizer step), 5 steps
+   under each of ``"ep_a2a"``, ``"ep_a2a_q8"`` and ``"dense"`` from the same
+   initialisation: exactly 6 forward and 3 backward flash calls a step, the
+   loss falling, step ms, tokens/s, peak memory and one profiled step.
+   The flash backward is also checked and timed at qwen3's training shape
+   (B=2, T=1024, 32 heads over 4, D=128) beside SDPA's backward.
 
 The last two lines are the ``{"kernels": [...]}`` record (five kernels)
 and
@@ -1440,7 +1456,7 @@ def _first_parted(dense, grouped, n_layers: int, start: int
     at which two runs route it to other experts (-1: never)."""
     first = None
     for layer in range(n_layers):
-        a, b = dense[start + layer], grouped[start + layer]
+        a, b = dense[start + layer][0], grouped[start + layer][0]
         parts = (a.sort(-1).values != b.sort(-1).values).any(-1)
         if first is None:
             first = torch.full(parts.shape, -1, dtype=torch.long,
@@ -1539,15 +1555,19 @@ def check_moe_impls(model, params, cfg, prompt, limit: float) -> None:
 
 @contextlib.contextmanager
 def recorded_routes():
-    """The expert indices (T, k) of every ``layers.moe_router`` call made
-    while the block runs, in call order (one per MoE layer of a
-    forward)."""
+    """Per ``layers.moe_router`` call made while the block runs, in call
+    order (one per MoE layer of a forward): the expert indices (T, k) and
+    each token's gap between its k-th and (k+1)-th router probability
+    (T,)."""
     routes = []
     real = L.moe_router
 
     def spy(spec, router_w, x2d):
         vals, idx = real(spec, router_w, x2d)
-        routes.append(idx)
+        with torch.no_grad():
+            top = torch.softmax(x2d.float() @ router_w.float(), -1).topk(
+                spec.top_k + 1, -1).values
+        routes.append((idx, top[:, -2] - top[:, -1]))
         return vals, idx
 
     L.moe_router = spy
@@ -1573,7 +1593,7 @@ def decode_step_bound(cfg, routes, dense: bool, lens) -> dict:
     attn_w = d * hq * hd + 2 * d * hkv * hd + hq * hd * d
     expert_w = 3 * d * m.d_ff_expert
     touched = [m.num_experts if dense else int(r.unique().numel())
-               for r in routes]
+               for r, _ in routes]
     if len(touched) != nl:
         raise AssertionError(f"{len(touched)} routed layers of {nl}")
     valid = sum(min(n, MAX_LEN) for n in lens)
@@ -1962,8 +1982,9 @@ def check_backward() -> float:
     """The backward kernel on the reference's shape list in fp32 and bf16,
     and at the training shapes, in bf16 and fp32, every key valid, as
     training calls it: gemma-2b's (B=2, T=1024, causal, 8 heads over 1,
-    D=256) and hymba-1.5b's (B=1, T=2048, causal, 25 heads over 5, D=64,
-    window 1024, which masks keys); returns the largest error at the
+    D=256), hymba-1.5b's (B=1, T=2048, causal, 25 heads over 5, D=64,
+    window 1024, which masks keys) and qwen3-moe-30b-a3b's (B=2, T=1024,
+    causal, 32 heads over 4, D=128); returns the largest error at the
     training shapes in bf16."""
     worst = {dt: 0.0 for dt in TOL}
     for i, (b, tq, tk, hq, hkv, d, win, caus, _, _) in enumerate(SHAPES):
@@ -1991,6 +2012,15 @@ def check_backward() -> float:
         log(f"  flash bwd hymba-1.5b training B={b} T={t} window={win} "
             f"{dtype}: max|err| {err:.3e} (tol {BWD_TOL[dtype]})")
         train[dtype] = max(train[dtype], err)
+    hq, hkv, hd, _ = QWEN3_ATTN
+    for dtype in TOL:
+        err = check_flash_bwd(TRAIN_B, TRAIN_T, TRAIN_T, hq, hkv, hd, None,
+                              True, dtype, [TRAIN_T] * TRAIN_B, 1680,
+                              f"{QWEN3} training {dtype}")
+        log(f"  flash bwd {QWEN3} training B={TRAIN_B} T={TRAIN_T} heads "
+            f"{hq}/{hkv} D={hd} {dtype}: max|err| {err:.3e} (tol "
+            f"{BWD_TOL[dtype]})")
+        train[dtype] = max(train[dtype], err)
     torch.cuda.synchronize()
     return train[torch.bfloat16]
 
@@ -2005,14 +2035,16 @@ def _by_name(r: dict | None) -> str:
 def bwd_launch_times(smi: str) -> None:
     """Each backward launch's device time by kernel name (``torch.profiler``
     over 5 calls, ms a call) at the training shapes of both backward
-    kernels: flash at gemma-2b's (B=2, T=1024) and hymba-1.5b's (B=1,
-    T=2048, window 1024) in bf16, with ``bwd_plan``'s splits; the SSD pass
+    kernels: flash at gemma-2b's (B=2, T=1024), hymba-1.5b's (B=1, T=2048,
+    window 1024) and qwen3-moe-30b-a3b's (B=2, T=1024, 32 heads over 4,
+    D=128) in bf16, with ``bwd_plan``'s splits; the SSD pass
     at mamba2-780m's and hymba-1.5b's, with its head groups."""
     hq, hkv, hd, win = HYMBA_ATTN
     hb, ht = SSM_TRAIN_BATCH["hymba-1.5b"]
     for tag, b, t, (nq, nkv, d), w in (
             ("gemma-2b", TRAIN_B, TRAIN_T, (HQ, HKV, HD), None),
-            ("hymba-1.5b", hb, ht, (hq, hkv, hd), win)):
+            ("hymba-1.5b", hb, ht, (hq, hkv, hd), win),
+            (QWEN3, TRAIN_B, TRAIN_T, QWEN3_ATTN[:3], None)):
         args, kw = flash_case(b, t, t, nq, nkv, d, w, True, torch.bfloat16,
                               [t] * b, 1750)
         gen = torch.Generator(device="cuda").manual_seed(1751)
@@ -2037,21 +2069,24 @@ def bwd_launch_times(smi: str) -> None:
             f"{_by_name(r)} [{smi}]")
 
 
-def time_flash_bwd(flush) -> dict:
-    """The backward at gemma-2b's training shape: kernel, plain version and
-    SDPA's backward (autograd through ``scaled_dot_product_attention``, the
-    graph kept, only the backward timed), device ms.  Its least work: the
-    five products (S, dP, dV, dQ, dK), 2 D FLOPs each per causal (query,
-    key) pair and head; bytes: q, k, v, o, dO read once and dq, dk, dv
-    written once in bf16, the LSE in fp32."""
-    args, kw = flash_case(TRAIN_B, TRAIN_T, TRAIN_T, HQ, HKV, HD, None, True,
+def time_flash_bwd(flush, heads=(HQ, HKV, HD)) -> dict:
+    """The backward at a training shape (B=2, T=1024, causal; gemma-2b's
+    heads unless ``heads`` = (hq, hkv, d) says otherwise): kernel, plain
+    version and SDPA's backward (autograd through
+    ``scaled_dot_product_attention``, the graph kept, only the backward
+    timed), device ms.  Its least work: the five products (S, dP, dV, dQ,
+    dK), 2 D FLOPs each per causal (query, key) pair and head; bytes: q, k,
+    v, o, dO read once and dq, dk, dv written once in bf16, the LSE in
+    fp32."""
+    hq, hkv, hd = heads
+    args, kw = flash_case(TRAIN_B, TRAIN_T, TRAIN_T, hq, hkv, hd, None, True,
                           torch.bfloat16, [TRAIN_T] * TRAIN_B, 1700)
     q, k, v = args
     gen = torch.Generator(device="cuda").manual_seed(1701)
     do = _randn(q.shape, torch.bfloat16, gen)
     o, lse = fa.flash_attention_fwd(*args, with_lse=True, **kw)
     pairs = TRAIN_B * TRAIN_T * (TRAIN_T + 1) / 2
-    flops = 10.0 * HQ * HD * pairs
+    flops = 10.0 * hq * hd * pairs
     nbytes = 2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel()
     bound, by = _bound(flops, nbytes)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -2211,14 +2246,18 @@ def check_train_grads(smi: str, aid: str = "gemma-2b",
 
 
 def train_full_depth(smi: str, aid: str = "gemma-2b",
-                     batch=(TRAIN_B, TRAIN_T)) -> dict:
-    """``aid`` at full width and depth (fp32 weights with fp32 AdamW
-    state): ``TRAIN_STEPS`` steps of ``make_train_step`` (remat on) on
-    ``SyntheticDataset`` at ``batch`` (B, T), exact kernel calls per step
-    (``_step_launches``), then one more step under the profiler for the
-    device-busy share.  The loss must fall over the steps.  Returns the
-    step's numbers."""
+                     batch=(TRAIN_B, TRAIN_T), layers: int | None = None,
+                     moe_impl: str = "dense") -> dict:
+    """``aid`` at full width and depth, or ``layers`` of its layers (fp32
+    weights with fp32 AdamW state): ``TRAIN_STEPS`` steps of
+    ``make_train_step`` (remat on, the MoE layers lowered as ``moe_impl``
+    says) on ``SyntheticDataset`` at ``batch`` (B, T), exact kernel calls
+    per step (``_step_launches``), then one more step under the profiler
+    for the device-busy share.  The loss must fall over the steps.  Returns
+    the step's numbers."""
     cfg = get_config(aid)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     b, t = batch
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -2227,12 +2266,13 @@ def train_full_depth(smi: str, aid: str = "gemma-2b",
     opt = train_optim.init(params)
     torch.cuda.synchronize()
     n = sum(x.numel() for x in train_tree.leaves(params))
-    log(f"{aid} training: {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 "
+    tag = aid if cfg.family != "moe" else f"{aid} moe_impl={moe_impl}"
+    log(f"{tag} training: {cfg.n_layers} layers, {n / 1e9:.3f} B fp32 "
         f"parameters, AdamW state fp32, init {time.perf_counter() - t0:.1f}"
         f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     plan = ShardingPlan(arch=cfg.name, shape="train", mesh=GPU_NODE,
                         global_mode="data", local_layout="single",
-                        batch_axes=(), remat=True)
+                        batch_axes=(), remat=True, moe_impl=moe_impl)
     # the reference's OptConfig defaults (lr 3e-4 after 100 warm-up steps)
     step = train_loop.make_train_step(model, train_optim.OptConfig(), plan)
     data = iter(SyntheticDataset(cfg, b, t, seed=2))
@@ -2250,13 +2290,13 @@ def train_full_depth(smi: str, aid: str = "gemma-2b",
         times.append(time.perf_counter() - t0)
         counts = _counts()
         if counts != want:
-            raise AssertionError(f"{aid} train step launches {counts}, "
+            raise AssertionError(f"{tag} train step launches {counts}, "
                                  f"expected {want}")
         for k in total:
             total[k] += counts[k]
         losses.append(float(metrics["loss"]))
     if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
-        raise AssertionError(f"{aid} train losses {losses}")
+        raise AssertionError(f"{tag} train losses {losses}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(times)
     tb = {k: torch.as_tensor(v, device="cuda") for k, v in next(data).items()}
@@ -2267,17 +2307,17 @@ def train_full_depth(smi: str, aid: str = "gemma-2b",
 
     r = _profile(one_step, 1)
     busy = None if r is None else r["device_ms"] / r["wall_ms"]
-    log(f"{aid} train step (B={b}, T={t}, remat, chunked CE):"
+    log(f"{tag} train step (B={b}, T={t}, remat, chunked CE):"
         f" {TRAIN_STEPS} steps, median {1e3 * med:.1f} ms "
         f"(steps {[round(1e3 * x, 1) for x in times]} ms) = "
         f"{b * t / med:.0f} tok/s; losses "
         f"{[round(x, 4) for x in losses]}; peak {peak:.2f} GiB; launches "
         f"per step {want} [{smi}]")
-    log(f"{aid} train step: {_profiled(one_step, 1, 'train step', r)} "
+    log(f"{tag} train step: {_profiled(one_step, 1, 'train step', r)} "
         f"[{smi}]")
     if r is not None:
         top = sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:12]
-        log(f"{aid} train step, device ms by kernel: " + "; ".join(
+        log(f"{tag} train step, device ms by kernel: " + "; ".join(
             f"{k[:70]} {v:.3f}" for k, v in top))
     del params, opt, state, step
     gc.collect()
@@ -2287,13 +2327,222 @@ def train_full_depth(smi: str, aid: str = "gemma-2b",
 
 
 
+# --------------------------------------------------------------------------
+# MoE training: qwen3-moe-30b-a3b at full width under the three lowerings
+# --------------------------------------------------------------------------
+
+# qwen3-moe-30b-a3b trains at full width and 3 of its 48 layers.  One layer
+# holds 623.1 M parameters (603.98 M of them experts), the untied embedding
+# and head 622.3 M; at 16 bytes a parameter (fp32 weights, gradients and
+# both AdamW moments) 3 layers are 37.1 GiB of state.  4 layers (46.4 GiB)
+# run out of the card's memory in the optimizer step: ``apply_updates``
+# makes the new parameters beside the old ones and each leaf's fp32
+# temporaries (3 GiB for one stacked expert leaf of 4 layers) beside them
+QWEN3_TRAIN_LAYERS = 3
+# the lowerings trained, each from the same seeded initialisation
+TRAIN_MOE_IMPLS = ("ep_a2a", "ep_a2a_q8", "dense")
+# one MoE layer's gradients, leaf by leaf in relative norm, on the same
+# activations and routing: the grouped step against the dense oracle at
+# tests/test_torch_moe_train.py's LAYER_GRAD_TOL (about twice the
+# reference's own ep-against-dense gap), and the int8 payload against the
+# bf16 one at its Q8_TOL (four int8 round trips, each within half a step of
+# its row's largest entry)
+MOE_LAYER_TOL, MOE_Q8_TOL = 1e-2, 3e-2
+# the grouped product's gradients against a loop of per-expert products:
+# (rows per expert) at qwen3's widths, empty groups among them
+GROUPED_ROWS = (300, 0, 129, 0, 512, 77, 0, 1006)
+
+
+def check_grouped_mm_grads() -> None:
+    """``torch._grouped_mm`` under autograd on the card, as the grouped step
+    calls it: bf16 rows (n, d) against an expert stack (E, d, f) cast from
+    fp32 leaves, the groups' int32 end offsets, some groups empty.  dX and
+    the fp32 stack's gradient (through the cast) against autograd of a loop
+    of per-expert bf16 products on the same operands, at the bf16 TOL."""
+    cfg = get_config(QWEN3)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    e, n = len(GROUPED_ROWS), sum(GROUPED_ROWS)
+    gen = torch.Generator(device="cuda").manual_seed(1900)
+    x = _randn((n, d), torch.bfloat16, gen)
+    w = torch.randn((e, d, f), generator=gen, device="cuda") / d ** 0.5
+    dy = _randn((n, f), torch.bfloat16, gen)
+    offs = torch.tensor(GROUPED_ROWS, device="cuda").cumsum(0).to(
+        torch.int32)
+
+    def grads(fn):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(xs, ws.to(torch.bfloat16))
+        return (y, *torch.autograd.grad(y, (xs, ws), dy))
+
+    got = grads(lambda xs, ws: torch._grouped_mm(xs, ws, offs=offs))
+    bounds = [0, *offs.tolist()]
+    want = grads(lambda xs, ws: torch.cat([
+        xs[lo:hi] @ ws[i] for i, (lo, hi) in enumerate(zip(bounds,
+                                                            bounds[1:]))]))
+    if got[2].dtype != torch.float32:
+        raise AssertionError(f"the stack's gradient is {got[2].dtype}")
+    errs = [_check(f"grouped_mm {what}", g, wt, TOL[torch.bfloat16])
+            for what, g, wt in zip(("out", "dX", "dW"), got, want)]
+    empty = [i for i, r in enumerate(GROUPED_ROWS) if not r]
+    if bool(got[2][empty].any()):
+        raise AssertionError("an empty group's weights got a gradient")
+    log(f"torch._grouped_mm under autograd (torch {torch.__version__}): "
+        f"{n} bf16 rows x {e} experts ({len(empty)} empty) of {d} x {f}, "
+        f"fp32 leaves: out, dX, dW against a per-expert loop max|err| "
+        + ", ".join(f"{x_:.3e}" for x_ in errs)
+        + f" (TOL {TOL[torch.bfloat16]}); empty groups' dW exactly 0")
+
+
+def check_moe_layer_grads(smi: str) -> None:
+    """One qwen3 MoE layer at full width over B x T = 2048 tokens: the
+    gradients of a seeded random cotangent (router, w_gate, w_up, w_down as
+    fp32 leaves, x in bf16) through ``moe_ep_a2a`` against ``moe_dense``
+    (``MOE_LAYER_TOL``) and through the int8 payload against the bf16 one
+    (``MOE_Q8_TOL``), leaf by leaf in relative norm.  All three route with
+    the port's ``moe_router`` on the same activations, so they route
+    alike."""
+    cfg = get_config(QWEN3)
+    m = cfg.moe
+    names = ("router", "w_gate", "w_up", "w_down")
+    p32 = {k: v.float() for k, v in moe_layer(cfg, 1950).items()}
+    gen = torch.Generator(device="cuda").manual_seed(1951)
+    x = _randn((TRAIN_B, TRAIN_T, cfg.d_model), torch.bfloat16, gen)
+    ct = _randn(x.shape, torch.bfloat16, gen)
+    fns = {"dense": lambda ps, xs: L.moe_dense(cfg, ps, xs),
+           "ep_a2a": lambda ps, xs: moe_ep.moe_ep_a2a(cfg, ps, xs),
+           "ep_a2a_q8": lambda ps, xs: moe_ep.moe_ep_a2a(
+               cfg, ps, xs, a2a_dtype="int8")}
+    g = {}
+    for impl, fn in fns.items():
+        ps = {k: v.clone().requires_grad_(True) for k, v in p32.items()}
+        xs = x.clone().requires_grad_(True)
+        out = torch.autograd.grad(fn(ps, xs), [ps[k] for k in names] + [xs],
+                                  ct)
+        g[impl] = dict(zip(names + ("x",), out))
+    for impl, against, tol in (("ep_a2a", "dense", MOE_LAYER_TOL),
+                               ("ep_a2a_q8", "ep_a2a", MOE_Q8_TOL)):
+        errs = {k: float((v.float() - g[against][k].float()).norm()
+                         / g[against][k].float().norm())
+                for k, v in g[impl].items()}
+        if not all(bool(torch.isfinite(v).all()) for v in g[impl].values()) \
+                or not max(errs.values()) <= tol:
+            raise AssertionError(f"{QWEN3} MoE layer gradients {impl} vs "
+                                 f"{against}: {errs} (tol {tol})")
+        log(f"{QWEN3} one MoE layer at full width, T={x.shape[0] * x.shape[1]}"
+            f": gradients {impl} vs {against}, relative norm "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tol {tol}) [{smi}]")
+    t = x.shape[0] * x.shape[1]
+    cap = moe_ep.capacity(t, m.top_k, m.capacity_factor)
+    log(f"{QWEN3} capacity at factor {m.capacity_factor}: "
+        f"{min(t * m.top_k, cap)} of the {t * m.top_k} assignments kept "
+        f"(cap {cap})")
+    del g, p32
+
+
+# a token that two lowerings route to other experts must have its k-th and
+# (k+1)-th router probabilities closer than this at the layer where they
+# part, in the dense run
+MOE_NEAR_TIE = 1e-3
+
+
+def check_moe_model_grads(smi: str) -> None:
+    """qwen3-moe-30b-a3b at full width and ``GRAD_CHECK_LAYERS`` layers:
+    loss and gradients of ``loss_fn`` (remat, chunked CE) on one B=2 x
+    T=1024 batch under ``moe_impl="ep_a2a"`` against ``"dense"``, the flash
+    kernels in both runs.  The two lowerings round differently, so a token
+    may be routed apart in a later layer; each such token must be a near
+    tie (``MOE_NEAR_TIE``) where it parts.  Leaves are held by relative
+    norm at ``GRAD_CHECK_TOL``, the loss at 1e-2 relative."""
+    cfg = dataclasses.replace(get_config(QWEN3), n_layers=GRAD_CHECK_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    tb = _train_batch(cfg, 1)
+    out = {}
+    for impl in ("ep_a2a", "dense"):
+        _zero_counts()
+        with recorded_routes() as calls:
+            ps = train_tree.map(lambda p: p.detach().requires_grad_(True),
+                                params)
+            loss = train_loop.loss_fn(model, ps, tb, moe_impl=impl)
+            grads = torch.autograd.grad(loss, train_tree.leaves(ps))
+        if _counts() != _step_launches(cfg):
+            raise AssertionError(f"{QWEN3} {impl} gradient check launches "
+                                 f"{_counts()}, expected "
+                                 f"{_step_launches(cfg)}")
+        # the forward's calls, one a layer (the remat recomputes follow)
+        out[impl] = (loss.detach(), grads, calls[:cfg.n_layers])
+    (lg, gg, rg), (ld, gd, rd) = out["ep_a2a"], out["dense"]
+    parted, ties = 0, []
+    seen = torch.zeros_like(rd[0][1], dtype=torch.bool)
+    for (ig, _), (idd, gap) in zip(rg, rd):
+        part = (ig.sort(-1).values != idd.sort(-1).values).any(-1) & ~seen
+        parted += int(part.sum())
+        ties.extend(gap[part].tolist())
+        seen |= part
+    if ties and max(ties) >= MOE_NEAR_TIE:
+        raise AssertionError(f"{QWEN3} ep_a2a and dense route a token apart "
+                             f"with a gap of {max(ties):.3e} (near tie "
+                             f"{MOE_NEAR_TIE})")
+    errs = [float((g.float() - w.float()).norm() / w.float().norm())
+            for g, w in zip(gg, gd)]
+    lerr = abs(float(lg) - float(ld)) / abs(float(ld))
+    if not all(np.isfinite(errs)) or max(errs) > GRAD_CHECK_TOL or \
+            lerr > 1e-2:
+        raise AssertionError(f"{QWEN3} ep_a2a vs dense gradients: loss rel "
+                             f"{lerr:.3e}, leaves {errs}")
+    log(f"{QWEN3} full width, {GRAD_CHECK_LAYERS} layers, B={TRAIN_B} "
+        f"T={TRAIN_T}: loss {float(lg):.5f} under ep_a2a, {float(ld):.5f} "
+        f"under dense (rel {lerr:.2e}); {parted} of {seen.numel()} tokens "
+        f"routed apart, largest gap among them "
+        f"{max(ties) if ties else 0.0:.3e} (near tie {MOE_NEAR_TIE}); "
+        f"{len(errs)} gradient leaves, worst relative-norm error "
+        f"{max(errs):.3e} (tol {GRAD_CHECK_TOL}) [{smi}]")
+    del params, out, gg, gd
+
+
+def moe_train_phases(smi: str) -> dict:
+    """The MoE training slice: ``torch._grouped_mm``'s gradients, one
+    full-width qwen3 MoE layer's gradients under the three lowerings, the
+    2-layer whole-model check of ``"ep_a2a"`` against ``"dense"``, then
+    ``QWEN3_TRAIN_LAYERS`` layers of qwen3-moe-30b-a3b trained
+    ``TRAIN_STEPS`` steps under each lowering (exactly 6 forward and 3
+    backward flash calls a step, the loss falling).  Returns the flash
+    backward's launches of the first run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_grouped_mm_grads()
+    check_moe_layer_grads(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_moe_model_grads(smi)
+    launches = None
+    for impl in TRAIN_MOE_IMPLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = train_full_depth(smi, QWEN3, layers=QWEN3_TRAIN_LAYERS,
+                             moe_impl=impl)
+        busy = "not measured" if r["busy"] is None else f"{r['busy']:.1%}"
+        log(f"{QWEN3} training cell ({QWEN3_TRAIN_LAYERS} of 48 layers, "
+            f"moe_impl={impl}): step {r['step_ms']:.1f} ms, "
+            f"{r['tok_s']:.0f} tok/s, peak {r['peak_gib']:.2f} GiB, busy "
+            f"{busy}, launches in {TRAIN_STEPS} steps {r['launches']} "
+            f"[{smi}]")
+        launches = launches or r["launches"]
+    log(f"{QWEN3} training phases: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def train_phases(smi: str) -> dict:
     """The training slice's main path: the trainer CLI, the full-width
     gradient check and the full-depth run of gemma-2b, then those of the
     SSM and hybrid families (mamba2-780m's gradient check against the SSD
     on its plain version, the CLI with ``--arch mamba2-780m``, and both
-    models at full depth, each freed before the next).  Returns the launch
-    counts of gemma-2b's and mamba2-780m's full-depth runs."""
+    models at full depth, each freed before the next), then the MoE family
+    (``moe_train_phases``).  Returns the launch counts of gemma-2b's and
+    mamba2-780m's full-depth runs."""
     gc.collect()
     torch.cuda.empty_cache()
     run_trainer(smi)
@@ -2316,6 +2565,10 @@ def train_phases(smi: str) -> dict:
         if aid == "mamba2-780m":
             launches["ssd_intra_chunk_bwd"] = \
                 r["launches"]["ssd_intra_chunk_bwd"]
+    moe = moe_train_phases(smi)
+    log(f"flash backward launches in {TRAIN_STEPS} train steps: gemma-2b "
+        f"{launches['flash_attention_bwd']} (the kernels line), {QWEN3} "
+        f"({QWEN3_TRAIN_LAYERS} layers) {moe['flash_attention_bwd']}")
     return launches
 
 
@@ -2491,6 +2744,10 @@ def main() -> int:
     log(_time_line(f"flash backward gemma-2b training B={TRAIN_B} "
                    f"T={TRAIN_T} (library: sdpa's backward)", r, smi))
     records["flash_attention_bwd"] = r
+    r = time_flash_bwd(None, QWEN3_ATTN[:3])
+    log(_time_line(f"flash backward {QWEN3} training B={TRAIN_B} "
+                   f"T={TRAIN_T} heads {QWEN3_ATTN[:3]} (library: sdpa's "
+                   "backward)", r, smi))
     for shape in SSD_TRAIN:
         r = time_ssd_bwd(shape)
         log(f"time ssd bwd {shape}: kernel {r['ms']:.4f} ms, plain "

@@ -187,20 +187,17 @@ def moe_dense(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
               impl: str = "dense") -> torch.Tensor:
-    """``impl``: "dense" (``moe_dense``) or "ep_a2a", the expert-parallel
-    step at an EP axis of width 1 (``moe_ep.moe_ep_a2a``: routed tokens
-    sorted by expert through grouped products).  The all-to-all's int8
-    payload ("ep_a2a_q8") comes with the multi-GPU slice."""
+    """``impl``: "dense" (``moe_dense``), or the expert-parallel step at an
+    EP axis of width 1 (``moe_ep.moe_ep_a2a``: routed tokens sorted by
+    expert through grouped products), its all-to-all payload in bf16
+    ("ep_a2a") or in int8 with fp32 row scales ("ep_a2a_q8")."""
     if impl not in MOE_IMPLS:
         raise ValueError(f"moe impl {impl!r} not in {MOE_IMPLS}")
     if impl == "dense":
         return moe_dense(cfg, p, x)
-    if impl == "ep_a2a_q8":
-        raise NotImplementedError(
-            "the all-to-all's int8 payload (ep_a2a_q8) comes with the "
-            "multi-GPU slice")
     from . import moe_ep
-    return moe_ep.moe_ep_a2a(cfg, p, x)
+    return moe_ep.moe_ep_a2a(
+        cfg, p, x, a2a_dtype="int8" if impl == "ep_a2a_q8" else "bfloat16")
 
 
 # --------------------------------------------------------------------------

@@ -11,12 +11,20 @@ is its local step (``moe_ep.py:147-225`` there), which this module computes:
      the experts' token groups (gate, up, then down after the fp32 SiLU);
   4. the rows put back in assignment order and combined, weighted, in fp32.
 
+With ``a2a_dtype="int8"`` (the ``"ep_a2a_q8"`` lowering) the payload of
+both all-to-alls crosses as int8 with fp32 row scales, as in the reference
+(``_a2a_i8``, ``moe_ep.py:40-71`` there): at width 1 the all-to-alls are
+identities and only the quantisation round trip is left, applied where the
+reference applies it, to the gathered token rows in x's dtype before the
+bf16 cast and to the grouped output cast to fp32 before the combine.  Its
+gradient is straight-through, itself quantised (``A2AInt8Fn``).
+
 The grouped product is ``torch._grouped_mm``, the counterpart of the XLA
 primitive ``jax.lax.ragged_dot`` (no Pallas kernel computes it in the JAX
 package).  It takes the sorted rows (n, d), the expert stack (E, d, f) as it
 lies in the parameters and the groups' int32 end offsets, reads only the
-experts that have rows, and accepts empty groups.  The all-to-all over
-several GPUs comes with the multi-GPU slice.
+experts that have rows, and accepts empty groups; autograd differentiates
+it.  The all-to-all over several GPUs comes with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -44,11 +52,49 @@ def capacity(t: int, top_k: int, capacity_factor: float) -> int:
     return _round_up(max(int(t * top_k * capacity_factor), 8), 8)
 
 
+A2A_DTYPES = ("bfloat16", "int8")
+
+
+def _quant_i8(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantisation (rows = tokens): the fp32 scale
+    max|v| / 127 + 1e-12, then the values divided by it, rounded half to
+    even and clipped to ±127.  Returns (int8 values, fp32 scales (..., 1))."""
+    vf = v.float()
+    scale = vf.abs().amax(-1, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(vf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _round_trip_i8(v: torch.Tensor) -> torch.Tensor:
+    """``v`` quantised to int8 and back, in v's dtype."""
+    q, s = _quant_i8(v)
+    return (q.float() * s).to(v.dtype)
+
+
+class A2AInt8Fn(torch.autograd.Function):
+    """The int8 all-to-all at an EP axis of width 1: the forward returns
+    the payload's quantisation round trip; the backward passes the gradient
+    straight through, itself quantised (the reference's ``_a2a_i8`` and its
+    ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, v: torch.Tensor) -> torch.Tensor:
+        return _round_trip_i8(v)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return _round_trip_i8(g)
+
+
 def moe_ep_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
-               capacity_factor: float | None = None) -> torch.Tensor:
+               capacity_factor: float | None = None,
+               a2a_dtype: str = "bfloat16") -> torch.Tensor:
     """x: (B, T, d); p: one layer's MoE parameters (router (d, E), w_gate and
     w_up (E, d, f), w_down (E, f, d)).  Returns (B, T, d) in x's dtype, like
-    ``layers.moe_dense``; assignments beyond the capacity add nothing."""
+    ``layers.moe_dense``; assignments beyond the capacity add nothing.
+    ``a2a_dtype``: the all-to-alls' payload, "bfloat16" or "int8"."""
+    if a2a_dtype not in A2A_DTYPES:
+        raise ValueError(f"a2a_dtype {a2a_dtype!r} not in {A2A_DTYPES}")
     if _world_size() > 1:
         raise NotImplementedError(
             "the all-to-all across GPUs comes with the multi-GPU slice; this "
@@ -71,11 +117,19 @@ def moe_ep_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     offs = torch.searchsorted(
         sorted_e, torch.arange(spec.num_experts, dtype=sorted_e.dtype,
                                device=x.device), right=True).to(torch.int32)
-    xs = x2[flat_tok[order]].to(torch.bfloat16)
-    gate = torch._grouped_mm(xs, p["w_gate"].to(torch.bfloat16), offs=offs)
-    up = torch._grouped_mm(xs, p["w_up"].to(torch.bfloat16), offs=offs)
-    h = F.silu(gate.float()).to(torch.bfloat16) * up
-    out = torch._grouped_mm(h, p["w_down"].to(torch.bfloat16), offs=offs)
+    xs = x2[flat_tok[order]]
+    if a2a_dtype == "int8":
+        xs = A2AInt8Fn.apply(xs)
+    # the products in bf16 (the reference's literal jnp.bfloat16, which is
+    # layers.COMPUTE_DTYPE)
+    bf = L.COMPUTE_DTYPE
+    xs = xs.to(bf)
+    gate = torch._grouped_mm(xs, p["w_gate"].to(bf), offs=offs)
+    up = torch._grouped_mm(xs, p["w_up"].to(bf), offs=offs)
+    h = F.silu(gate.float()).to(bf) * up
+    out = torch._grouped_mm(h, p["w_down"].to(bf), offs=offs)
+    if a2a_dtype == "int8":
+        out = A2AInt8Fn.apply(out.float())
     back = torch.empty_like(out)
     back[order] = out                                   # unsort
     contrib = back.float() * flat_w[:, None]

@@ -132,6 +132,40 @@ def test_gpu_planning_and_fleet_run_where_jax_and_repro_cannot_import():
     assert "NODE dp_tp" in out.stdout and "BAD []" in out.stdout, out.stdout
 
 
+# the GPU plan explorer example, run as a script with jax and repro refused
+_EXPLORER_WITHOUT_JAX = """
+import runpy, sys
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"refused: {name}")
+
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = [sys.argv[1], "--arch", "qwen3-moe-30b-a3b", "--shape",
+            "train_4k", "--multi-node"]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("BAD", sorted(n for n in sys.modules
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_gpu_plan_explorer_runs_where_jax_and_repro_cannot_import():
+    """``examples/gpu_plan_explorer.py`` plans with jax and ``repro``
+    refused at import."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run(
+        [sys.executable, "-c", _EXPLORER_WITHOUT_JAX,
+         str(ROOT / "examples" / "gpu_plan_explorer.py")], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "HiDP picked: " in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
 # the training path with jax, repro and msgpack refused (the GPU machine has
 # no msgpack): two train steps, a checkpoint written and restored
 _TRAIN_WITHOUT_JAX = """

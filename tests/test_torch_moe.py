@@ -228,8 +228,9 @@ def test_moe_ep_matches_jax_and_the_dense_oracle(pair, case):
 
 
 def test_moe_apply_dispatch(pair, monkeypatch):
-    """"dense" is the oracle, "ep_a2a" the grouped step; the int8 payload,
-    "ep_a2a" across several processes and unknown lowerings are
+    """"dense" is the oracle, "ep_a2a" the grouped step and "ep_a2a_q8" the
+    grouped step with its all-to-alls' payload in int8; both grouped
+    lowerings across several processes, and unknown lowerings, are
     refused."""
     cfg, _, _, _, _, _ = pair
     p, _ = _layer0(pair)
@@ -237,13 +238,14 @@ def test_moe_apply_dispatch(pair, monkeypatch):
     assert torch.equal(L.moe_apply(cfg, p, x), L.moe_dense(cfg, p, x))
     assert torch.equal(L.moe_apply(cfg, p, x, impl="ep_a2a"),
                        moe_ep.moe_ep_a2a(cfg, p, x))
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        L.moe_apply(cfg, p, x, impl="ep_a2a_q8")
+    assert torch.equal(L.moe_apply(cfg, p, x, impl="ep_a2a_q8"),
+                       moe_ep.moe_ep_a2a(cfg, p, x, a2a_dtype="int8"))
     with pytest.raises(ValueError, match="moe impl"):
         L.moe_apply(cfg, p, x, impl="sparse")
     monkeypatch.setattr(moe_ep, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        L.moe_apply(cfg, p, x, impl="ep_a2a")
+    for impl in ("ep_a2a", "ep_a2a_q8"):
+        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+            L.moe_apply(cfg, p, x, impl=impl)
 
 
 # --------------------------------------------------------------------------
