@@ -145,7 +145,34 @@ each of which exits non-zero when it fails:
    initialisation: exactly 6 forward and 3 backward flash calls a step, the
    loss falling, step ms, tokens/s, peak memory and one profiled step.
    The flash backward is also checked and timed at qwen3's training shape
-   (B=2, T=1024, 32 heads over 4, D=128) beside SDPA's backward.
+   (B=2, T=1024, 32 heads over 4, D=128) beside SDPA's backward;
+7. (run after the training slice) the multi-GPU slice over NCCL at world
+   1: a process group of one rank (a ``FileStore`` in a temporary
+   directory) and a (1, 1) ("data", "model") mesh from
+   ``launch.mesh.make_smoke_mesh``; one full-width qwen3-moe-30b-a3b MoE
+   layer over B=2 x T=1024 tokens through ``moe_ep``'s multi-rank path
+   (the mesh published: dispatch buffers, the all-to-alls over the EP
+   group) against the in-process step, in bf16 and int8 (output at the
+   bf16 TOL, gradients at 1e-2 by relative norm), and the dispatch
+   all-to-all's device time; gemma-2b at full width and depth, 5 steps of
+   the unsharded ``make_train_step`` and of the sharded step
+   (``sharding.spmd``) under ``P1_pure_dp`` and ``fsdp_all`` from one
+   seed: losses at rtol 2e-3 and parameters at atol 3e-3 (the reference's
+   tolerances), exactly 36 forward and 18 backward flash calls a step,
+   step ms, peak GiB and busy share each; qwen3-moe-30b-a3b at full width
+   and 3 of 48 layers, 5 sharded steps under ``dp_sp_fsdp_ep`` and
+   ``dp_sp_fsdp_ep_q8`` against the in-process ``"ep_a2a"`` and
+   ``"ep_a2a_q8"`` runs above; the GPipe pipeline at world 1 against the
+   flat stack (gemma-2b at full width, 2 layers) and one pipelined step's
+   loss; flash forward and backward at one rank's share of an 8-way
+   sequence split of qwen3's step (128 queries over 1024 keys, offsets 0
+   and 896) against their plain versions, timed beside SDPA; and the
+   dry-run's host processes, started before the training slice (beside
+   the host-bound serving paths they would slow them) and read after the
+   times of phase 5: gemma-2b's two world-1 cells' predicted peak beside
+   the measured one, and ``train_4k`` of every arch on both GPU meshes,
+   one line a cell beside the planner's predicted resident GiB and
+   collective ms.
 
 The last two lines are the ``{"kernels": [...]}`` record (five kernels)
 and
@@ -160,6 +187,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -195,7 +223,8 @@ from repro_torch.runtime import ElasticController  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.plan_cache import PlanCache  # noqa: E402
 from repro_torch.sharding.plan import (GPU_MULTI_NODE, GPU_NODE,  # noqa: E402
-                                       H100, ShardingPlan, plan_gpu)
+                                       H100, MeshDesc, ShardingPlan,
+                                       plan_gpu)
 from repro_torch.telemetry import TelemetryRecorder  # noqa: E402
 from repro_torch.training import checkpoint as train_ckpt  # noqa: E402
 from repro_torch.training import optimizer as train_optim  # noqa: E402
@@ -2323,7 +2352,7 @@ def train_full_depth(smi: str, aid: str = "gemma-2b",
     gc.collect()
     torch.cuda.empty_cache()
     return dict(step_ms=1e3 * med, tok_s=b * t / med, peak_gib=peak,
-                busy=busy, launches=total)
+                busy=busy, launches=total, losses=losses)
 
 
 
@@ -2339,8 +2368,10 @@ def train_full_depth(smi: str, aid: str = "gemma-2b",
 # makes the new parameters beside the old ones and each leaf's fp32
 # temporaries (3 GiB for one stacked expert leaf of 4 layers) beside them
 QWEN3_TRAIN_LAYERS = 3
-# the lowerings trained, each from the same seeded initialisation
+# the lowerings trained, each from the same seeded initialisation; their
+# runs' numbers by lowering, for the multi-GPU phase's comparison
 TRAIN_MOE_IMPLS = ("ep_a2a", "ep_a2a_q8", "dense")
+MOE_TRAIN_RUNS: dict = {}
 # one MoE layer's gradients, leaf by leaf in relative norm, on the same
 # activations and routing: the grouped step against the dense oracle at
 # tests/test_torch_moe_train.py's LAYER_GRAD_TOL (about twice the
@@ -2524,6 +2555,7 @@ def moe_train_phases(smi: str) -> dict:
         torch.cuda.empty_cache()
         r = train_full_depth(smi, QWEN3, layers=QWEN3_TRAIN_LAYERS,
                              moe_impl=impl)
+        MOE_TRAIN_RUNS[impl] = dict(r, layers=QWEN3_TRAIN_LAYERS)
         busy = "not measured" if r["busy"] is None else f"{r['busy']:.1%}"
         log(f"{QWEN3} training cell ({QWEN3_TRAIN_LAYERS} of 48 layers, "
             f"moe_impl={impl}): step {r['step_ms']:.1f} ms, "
@@ -2570,6 +2602,562 @@ def train_phases(smi: str) -> dict:
         f"{launches['flash_attention_bwd']} (the kernels line), {QWEN3} "
         f"({QWEN3_TRAIN_LAYERS} layers) {moe['flash_attention_bwd']}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# Multi-GPU: the sharded paths over NCCL at world 1
+# --------------------------------------------------------------------------
+
+# the GPU planner's training layouts at world 1 on a (1, 1) ("data",
+# "model") mesh: (layout, its axes); the MoE ones also name their lowering
+WORLD_ONE = MeshDesc(("data", "model"), (1, 1))
+DENSE_LAYOUTS = ("P1_pure_dp", "fsdp_all")
+EP_LAYOUTS = (("dp_sp_fsdp_ep", "ep_a2a"), ("dp_sp_fsdp_ep_q8", "ep_a2a_q8"))
+# qwen3-moe-30b-a3b's sharded steps at the MoE training cells' depth
+QWEN3_SHARDED_LAYERS = QWEN3_TRAIN_LAYERS
+# one full-width qwen3 MoE layer through the all-to-all path: B x T tokens
+MOE_A2A_BT = (2, 1024)
+# the pipeline against the flat stack: gemma-2b at full width, 2 layers
+PIPE_LAYERS, PIPE_MICRO = 2, 2
+# tests/test_distributed.py's tolerances for a sharded step against the
+# unsharded one, and for the pipeline against the flat stack
+STEP_LOSS_RTOL, STEP_PARAM_ATOL, PIPE_TOL = 2e-3, 3e-3, 3e-2
+# flash at one rank's share of qwen3's training step under an 8-way
+# sequence split: (b, tq, tk, hq, hkv, d) and the queries' offsets (the
+# first and the last rank)
+CP_SHAPE, CP_OFFSETS = (2, 128, 1024, 32, 4, 128), (0, 896)
+# the dry-run's host lines: train_4k on both GPU meshes, each mesh's archs
+# in two host processes of about equal trace time (mistral-large-123b and
+# qwen3-moe-30b-a3b take 2-2.5 minutes each, with the rest beside them)
+DRYRUN_SHAPE = "train_4k"
+DRYRUN_SPLIT = (("mistral-large-123b", "mamba2-780m", "hymba-1.5b", "gemma-2b",
+                 "whisper-tiny", "gemma3-1b"),
+                ("qwen3-moe-30b-a3b", "mixtral-8x7b", "llama-3.2-vision-11b",
+                 "minicpm-2b"))
+
+
+def world_one_plan(layout: str, moe_impl: str = "dense") -> ShardingPlan:
+    """``layout``'s axes on the (1, 1) mesh, remat on, one microbatch
+    ("unsharded": no axes, for ``make_train_step``)."""
+    ep = dict(batch_axes=("data",), seq_axes=("model",),
+              fsdp_axes=("data", "model"))
+    axes = {"unsharded": dict(batch_axes=()),
+            "P1_pure_dp": dict(batch_axes=("data", "model")),
+            "fsdp_all": dict(batch_axes=("data", "model"),
+                             fsdp_axes=("data", "model")),
+            "dp_sp_fsdp_ep": ep, "dp_sp_fsdp_ep_q8": ep}[layout]
+    return ShardingPlan(arch="smoke", shape="train", mesh=WORLD_ONE,
+                        global_mode="data", local_layout=layout, tp_axes=(),
+                        moe_impl=moe_impl, **axes)
+
+
+@contextlib.contextmanager
+def world_one(backend: str = "nccl", device_type: str = "cuda"):
+    """A process group of one rank (a ``FileStore`` in a temporary
+    directory) and the (1, 1) ("data", "model") mesh over it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    tmp = tempfile.mkdtemp()
+    kw = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1, **kw)
+    try:
+        yield make_smoke_mesh((1, 1), ("data", "model"),
+                              device_type=device_type)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rel(g, w) -> float:
+    return float((g.float() - w.float()).norm() / w.float().norm())
+
+
+def check_moe_a2a(mesh, smi: str) -> None:
+    """One full-width qwen3 MoE layer over ``MOE_A2A_BT`` tokens through the
+    multi-rank path of ``moe_ep_a2a`` (dispatch buffers, the all-to-alls
+    over the EP group, the combine) against the in-process step, in bf16
+    and with the int8 payload: the output at the bf16 TOL, the gradients of
+    a random cotangent (router, w_gate, w_up, w_down, x) at
+    ``MOE_LAYER_TOL``; then the dispatch all-to-all's device time."""
+    from repro_torch.sharding import comm
+    from repro_torch.sharding import ctx as shard_ctx
+    from repro_torch.sharding.specs import Spec
+    cfg = get_config(QWEN3)
+    b, t = MOE_A2A_BT
+    p = moe_layer(cfg, 2300)
+    gen = torch.Generator(device="cuda").manual_seed(2301)
+    x = _randn((b, t, cfg.d_model), torch.bfloat16, gen)
+    cot = _randn((b, t, cfg.d_model), torch.float32, gen)
+    act = Spec("data", "model", None)
+
+    def run(a2a, sharded):
+        ps = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xs = x.detach().requires_grad_(True)
+        with contextlib.ExitStack() as st:
+            if sharded:
+                st.enter_context(shard_ctx.plan_specs(act, None, mesh=mesh,
+                                                      ep_axis="model"))
+            y = moe_ep.moe_ep_a2a(cfg, ps, xs, a2a_dtype=a2a)
+        grads = torch.autograd.grad((y.float() * cot).sum(),
+                                    [*ps.values(), xs])
+        return y.detach(), grads
+
+    for a2a in moe_ep.A2A_DTYPES:
+        y0, g0 = run(a2a, False)
+        y1, g1 = run(a2a, True)
+        err = _check(f"moe a2a multi-rank vs in-process ({a2a})", y1, y0,
+                     TOL[torch.bfloat16])
+        errs = [_rel(g, w) for g, w in zip(g1, g0)]
+        if not all(np.isfinite(errs)) or max(errs) > MOE_LAYER_TOL:
+            raise AssertionError(f"moe a2a {a2a} gradients (router, w_gate, "
+                                 f"w_up, w_down, x): {errs}")
+        log(f"{QWEN3} MoE layer B={b} T={t} through the all-to-all over "
+            f"NCCL at world 1, payload {a2a}: output max|err| {err:.3e} "
+            f"against the in-process step, gradients' relative-norm errors "
+            f"{[f'{e:.2e}' for e in errs]} (tol {MOE_LAYER_TOL}) [{smi}]")
+    cap = moe_ep._round_up(max(int(b * t * cfg.moe.top_k
+                                   * cfg.moe.capacity_factor), 8), 8)
+    group = mesh.get_group("model")
+    send = _randn((1, cap, cfg.d_model), torch.bfloat16, gen)
+    q, s = moe_ep._quant_i8(send)
+    ms = time_ms(lambda: comm.all_to_all_autograd(send, group), None)
+    ms8 = time_ms(lambda: (comm.all_to_all(q, group),
+                           comm.all_to_all(s, group)), None)
+    log(f"{QWEN3} dispatch all-to-all over NCCL at world 1, (1, {cap}, "
+        f"{cfg.d_model}): bf16 {ms:.4f} ms ({send.numel() * 2 / 1e6:.1f} "
+        f"MB), int8 payload and scales {ms8:.4f} ms [{smi}]")
+
+
+def _dryrun_proc(code: str) -> subprocess.Popen:
+    """A host process of the dry-run (a fake process group of its own; one
+    thread: its tensors are abstract)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent / "src")
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+_DRYRUN_WORLD_ONE = """
+import json, logging
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(40)
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.models import ShapeConfig, build_model
+from repro_torch.sharding import MeshDesc, ShardingPlan
+from repro_torch.kernels import ops
+ops.set_backend("blocked")
+model = build_model(get_config("gemma-2b"))
+shape = ShapeConfig("train_smoke", {t}, {b}, "train")
+desc = MeshDesc(("data", "model"), (1, 1))
+for layout, axes in {layouts}:
+    plan = ShardingPlan(arch="smoke", shape="train", mesh=desc,
+                        global_mode="data", local_layout=layout, tp_axes=(),
+                        **axes)
+    with dryrun.fake_world(desc) as mesh:
+        rec = dryrun.trace_cell(model, shape, plan, mesh)
+    print(json.dumps(dict(layout=layout, **rec)), flush=True)
+"""
+
+_DRYRUN_CELLS = """
+import json, logging
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(40)
+from repro_torch.launch import dryrun
+for arch in {archs!r}:
+    rec = dryrun.run_cell(arch, "{shape}", {multi}, out_dir={out!r})
+    print(json.dumps(rec, default=list), flush=True)
+"""
+
+
+def start_dryruns() -> dict:
+    """The dry-run's host processes, to run beside the card's work:
+    gemma-2b's two world-1 cells of
+    ``sharded_gemma`` (at B x T = ``TRAIN_B`` x ``TRAIN_T``), and
+    ``DRYRUN_SHAPE`` for every arch on each GPU mesh (``DRYRUN_SPLIT``)."""
+    layouts = [(lay, {"batch_axes": ("data", "model"),
+                      **({"fsdp_axes": ("data", "model")}
+                         if lay == "fsdp_all" else {})})
+               for lay in DENSE_LAYOUTS]
+    out = str(Path(__file__).resolve().parent / "artifacts" / "dryrun_gpu")
+    return {"world_one": _dryrun_proc(_DRYRUN_WORLD_ONE.format(
+                t=TRAIN_T, b=TRAIN_B, layouts=layouts)),
+            **{f"cells_{m}_{i}": _dryrun_proc(_DRYRUN_CELLS.format(
+                archs=archs, shape=DRYRUN_SHAPE, multi=m, out=out))
+               for m in (False, True)
+               for i, archs in enumerate(DRYRUN_SPLIT)},
+            "t0": time.perf_counter()}
+
+
+def stop_dryruns(procs: dict) -> None:
+    """Ends the dry-run's processes that are still running (a failure
+    elsewhere)."""
+    for p in procs.values():
+        if isinstance(p, subprocess.Popen) and p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def _finish(proc: subprocess.Popen, what: str, timeout: float) -> list:
+    """The JSON lines a dry-run process printed; raises if it failed."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dry-run {what}: still running after "
+                             f"{timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"dry-run {what} failed: {err[-2000:]}")
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+
+
+def _train_run(step, state: list, batches, want: dict, tag: str,
+               at_end=None) -> dict:
+    """``step`` over ``batches`` from ``state`` = [params, opt_state], which
+    it empties (so that the caller holds no step's parameters): exact
+    kernel calls per step, the losses, step times and the peak memory;
+    ``at_end(params)`` on the final parameters (its result ``end``); then
+    one more step under the profiler for the busy share."""
+    params, opt = state
+    state.clear()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for tb in batches:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, tb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if _counts() != want:
+            raise AssertionError(f"{tag} step launches {_counts()}, "
+                                 f"expected {want}")
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{tag} losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    end = None if at_end is None else at_end(params)
+    state = [params, opt]
+    del params, opt
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batches[0])
+
+    r = _profile(one_step, 1)
+    del state
+    return dict(losses=losses, step_ms=1e3 * statistics.median(times),
+                times=times, peak_gib=peak, end=end,
+                busy=None if r is None else r["device_ms"] / r["wall_ms"])
+
+
+def _run_line(tag: str, r: dict, smi: str) -> str:
+    busy = "not measured" if r["busy"] is None else f"{r['busy']:.1%}"
+    return (f"{tag}: {len(r['losses'])} steps, median step "
+            f"{r['step_ms']:.1f} ms (steps "
+            f"{[round(1e3 * x, 1) for x in r['times']]}), losses "
+            f"{[round(x, 5) for x in r['losses']]}, peak {r['peak_gib']:.2f} "
+            f"GiB, busy {busy} [{smi}]")
+
+
+def _compare(tag: str, got: dict, want: dict) -> str:
+    """Losses at ``STEP_LOSS_RTOL``; the final parameters' largest error
+    (``got["end"]``, where measured) at ``STEP_PARAM_ATOL``."""
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   want["losses"]))
+    if lerr > STEP_LOSS_RTOL:
+        raise AssertionError(f"{tag} losses {got['losses']} against "
+                             f"{want['losses']}")
+    out = f"loss rel err {lerr:.2e} (rtol {STEP_LOSS_RTOL})"
+    if got.get("end") is not None:
+        if got["end"] > STEP_PARAM_ATOL:
+            raise AssertionError(f"{tag} parameters part by "
+                                 f"{got['end']:.3e}")
+        out += (f", parameters max|err| {got['end']:.3e} (atol "
+                f"{STEP_PARAM_ATOL})")
+    return out
+
+
+def _param_err(params, want: list) -> float:
+    """The largest error of a world-1 DTensor tree against parameters kept
+    on the host."""
+    return max(float((g.to_local().float() - w.to(g.device).float())
+                     .abs().max())
+               for g, w in zip(train_tree.leaves(params), want))
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sharded_gemma(mesh, smi: str) -> dict:
+    """gemma-2b at full width and depth, ``TRAIN_STEPS`` steps of the
+    unsharded ``make_train_step``, then of the sharded step under each of
+    ``DENSE_LAYOUTS`` at world 1, all from the same initialisation and
+    batches: exactly 36 forward and 18 backward flash calls a step, losses
+    and final parameters against the unsharded run's.  Returns each run's
+    numbers by layout ("unsharded" too)."""
+    from repro_torch.sharding import specs, spmd
+    cfg = get_config("gemma-2b")
+    model = build_model(cfg)
+    want = _step_launches(cfg)
+    data = iter(SyntheticDataset(cfg, TRAIN_B, TRAIN_T, seed=2))
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                next(data).items()} for _ in range(TRAIN_STEPS)]
+    oc = train_optim.OptConfig()
+    runs = {}
+
+    def init():
+        return model.init(torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+
+    params = init()
+    state = [params, train_optim.init(params)]
+    del params
+    step = train_loop.make_train_step(model, oc, world_one_plan(
+        "unsharded"))
+    r = _train_run(step, state, batches, want, "gemma-2b unsharded",
+                   lambda p: [x.detach().cpu() for x in train_tree.leaves(p)])
+    ref_params = r.pop("end")
+    runs["unsharded"] = r
+    log(_run_line("gemma-2b unsharded make_train_step", r, smi))
+    del step
+    _free()
+    for layout in DENSE_LAYOUTS:
+        plan = world_one_plan(layout)
+        params = specs.param_shardings(mesh, init(), plan)
+        state = [params, train_optim.init(params)]
+        del params
+        step = spmd.make_sharded_train_step(model, oc, plan, mesh)
+        r = _train_run(step, state, batches, want, f"gemma-2b {layout}",
+                       lambda p: _param_err(p, ref_params))
+        cmp = _compare(f"gemma-2b {layout}", r, runs["unsharded"])
+        runs[layout] = r
+        log(_run_line(f"gemma-2b sharded step {layout} (NCCL, world 1)", r,
+                      smi) + f"; against the unsharded step: {cmp}; "
+            f"launches per step {want}")
+        del step
+        _free()
+    return runs
+
+
+def sharded_qwen3(mesh, smi: str) -> None:
+    """qwen3-moe-30b-a3b at full width and ``QWEN3_SHARDED_LAYERS`` layers,
+    ``TRAIN_STEPS`` sharded steps under each of ``EP_LAYOUTS`` at world 1
+    (the sequence over "model", the experts behind the all-to-all over
+    NCCL), against the in-process steps of the same lowering at the same
+    depth from ``moe_train_phases`` (same initialisation and batches)."""
+    from repro_torch.sharding import specs, spmd
+    cfg = dataclasses.replace(get_config(QWEN3),
+                              n_layers=QWEN3_SHARDED_LAYERS)
+    model = build_model(cfg)
+    want = _step_launches(cfg)
+    data = iter(SyntheticDataset(cfg, TRAIN_B, TRAIN_T, seed=2))
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                next(data).items()} for _ in range(TRAIN_STEPS)]
+    for layout, impl in EP_LAYOUTS:
+        inproc = MOE_TRAIN_RUNS.get(impl)
+        if inproc is None or inproc["layers"] != QWEN3_SHARDED_LAYERS:
+            raise AssertionError(f"no in-process {impl} run at "
+                                 f"{QWEN3_SHARDED_LAYERS} layers")
+        plan = world_one_plan(layout, impl)
+        params = specs.param_shardings(mesh, model.init(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+            plan)
+        state = [params, train_optim.init(params)]
+        del params
+        step = spmd.make_sharded_train_step(model, train_optim.OptConfig(),
+                                            plan, mesh)
+        r = _train_run(step, state, batches, want, f"{QWEN3} {layout}")
+        cmp = _compare(f"{QWEN3} {layout}", r, inproc)
+        busy = ("not measured" if inproc["busy"] is None
+                else f"{inproc['busy']:.1%}")
+        log(_run_line(f"{QWEN3} ({QWEN3_SHARDED_LAYERS} of 48 layers) "
+                      f"sharded step {layout} (NCCL, world 1)", r, smi)
+            + f"; against the in-process {impl} step (median "
+            f"{inproc['step_ms']:.1f} ms, peak {inproc['peak_gib']:.2f} GiB, "
+            f"busy {busy}): {cmp}; launches per step {want}")
+        del step, r
+        _free()
+
+
+def check_pipeline(smi: str) -> None:
+    """The GPipe pipeline at world 1 (one stage over a ("pod",) mesh of 1,
+    ``PIPE_MICRO`` microbatches) against the flat stack, gemma-2b at full
+    width and ``PIPE_LAYERS`` layers: the hidden states at 3e-2, and one
+    pipelined train step's loss against ``make_train_step``'s."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding import pipeline
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=PIPE_LAYERS)
+    model = build_model(cfg)
+    pmesh = make_smoke_mesh((1,), ("pod",))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    tb = _train_batch(cfg, 3)
+    with torch.no_grad():
+        flat, _ = transformer.forward(cfg, params, tb["tokens"],
+                                      mode="train", return_hidden=True)
+        staged = pipeline.stage_param_shardings(
+            pmesh, pipeline.stage_params(cfg, params, 1))
+        _zero_counts()
+        hidden = pipeline.pipeline_hidden(cfg, staged, tb["tokens"],
+                                          mesh=pmesh, n_stages=1,
+                                          microbatches=PIPE_MICRO)
+        calls = _counts()["flash_attention"]
+    err = _check("pipeline vs flat stack", hidden, flat, PIPE_TOL)
+    plan = ShardingPlan(arch=cfg.name, shape="train",
+                        mesh=MeshDesc(("pod",), (1,)), global_mode="model",
+                        local_layout="pipeline", batch_axes=(), tp_axes=(),
+                        pipeline_stages=1, microbatches=PIPE_MICRO,
+                        remat=False)
+    oc = train_optim.OptConfig()
+    step = pipeline.make_pipeline_train_step(model, oc, plan, pmesh)
+    _, _, m1 = step(staged, train_optim.init(staged), tb)
+    one = train_loop.make_train_step(model, oc, dataclasses.replace(
+        plan, microbatches=1))
+    _, _, m0 = one(params, train_optim.init(params), tb)
+    lerr = abs(float(m1["loss"]) - float(m0["loss"])) / abs(float(m0["loss"]))
+    if lerr > STEP_LOSS_RTOL:
+        raise AssertionError(f"pipeline step loss {float(m1['loss'])} "
+                             f"against {float(m0['loss'])}")
+    log(f"gemma-2b pipeline at world 1 ({PIPE_LAYERS} layers, full width, "
+        f"{PIPE_MICRO} microbatches of B={TRAIN_B // PIPE_MICRO} T={TRAIN_T}"
+        f"): hidden max|err| {err:.3e} against the flat stack (tol "
+        f"{PIPE_TOL}); {calls} flash calls; one train step's loss "
+        f"{float(m1['loss']):.5f} against {float(m0['loss']):.5f} (rel "
+        f"{lerr:.2e}) [{smi}]")
+    del params, staged, step
+    _free()
+
+
+def check_context_parallel_flash(smi: str) -> None:
+    """Flash forward and backward at one rank's share of qwen3's training
+    step under an 8-way sequence split (``CP_SHAPE``: its 128 queries
+    against the whole 1024 keys, causal, offset by ``CP_OFFSETS``), against
+    the plain versions (LSE, output, dQ/dK/dV), and timed beside SDPA."""
+    b, tq, tk, hq, hkv, d = CP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2400)
+    q = _randn((b, tq, hq, d), torch.bfloat16, gen)
+    k = _randn((b, tk, hkv, d), torch.bfloat16, gen)
+    v = _randn((b, tk, hkv, d), torch.bfloat16, gen)
+    do = _randn((b, tq, hq, d), torch.bfloat16, gen)
+    for off in CP_OFFSETS:
+        kw = dict(causal=True, q_offset=off)
+        o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        want_o, want_lse = ref.attention_lse_naive(q, k, v, **kw)
+        err = max(_check(f"flash cp out q_offset={off}", o, want_o,
+                         TOL[torch.bfloat16]),
+                  _check(f"flash cp lse q_offset={off}", lse, want_lse,
+                         TOL[torch.bfloat16]))
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = ref.attention_bwd_naive(q, k, v, o, lse, do, **kw)
+        berr = max(_check(f"flash cp bwd q_offset={off} d{n}", g, w,
+                          BWD_TOL[torch.bfloat16])
+                   for n, g, w in zip("qkv", got, want))
+        pairs = b * fa.visible_pairs(tq, tk, causal=True, window=None,
+                                     q_offset=off)
+        qpos = off + torch.arange(tq, device="cuda")
+        mask = (torch.arange(tk, device="cuda")[None, :]
+                <= qpos[:, None])[None, None]
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        sd = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        f_bound = _bound(4.0 * hq * d * pairs,
+                         2.0 * (2 * q.numel() + k.numel() + v.numel()))
+        b_bound = _bound(10.0 * hq * d * pairs,
+                         2.0 * (4 * q.numel() + 4 * k.numel())
+                         + 4.0 * lse.numel())
+        fwd = _times(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                     lambda: ref.attention_naive(q, k, v, **kw),
+                     lambda: _sdpa(qt.detach(), kt.detach(), vt.detach(),
+                                   mask), None)
+        bwd = _times(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw),
+                     lambda: ref.attention_bwd_naive(q, k, v, o, lse, do,
+                                                     **kw),
+                     lambda: torch.autograd.grad(sd, (qt, kt, vt), dot,
+                                                 retain_graph=True), None)
+        for name, r, (bound, by), e in (("forward", fwd, f_bound, err),
+                                        ("backward", bwd, b_bound, berr)):
+            r.update(bound_ms=bound, bound_by=by)
+            log(f"flash {name} at the context-parallel shape (b, tq, tk, "
+                f"hq, hkv, d) = {CP_SHAPE}, q_offset {off}: max|err| "
+                f"{e:.3e}; kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+                f"bound {bound:.5f} ms ({by}) [{smi}]")
+
+
+def dryrun_lines(procs: dict, world_one_runs: dict, smi: str) -> None:
+    """The dry-run's records: gemma-2b's two world-1 cells' predicted peak
+    beside the measured one (a gap above 20% is logged, not failed), then
+    one line per ``DRYRUN_SHAPE`` cell on each GPU mesh beside the
+    planner's predicted resident GiB and collective ms."""
+    t0 = time.perf_counter()
+    for rec in _finish(procs["world_one"], "world-1 cells", 600):
+        got = world_one_runs[rec["layout"]]["peak_gib"]
+        pred = rec["memory"]["peak_per_device"] / 2**30
+        gap = (pred - got) / got
+        log(f"dry-run gemma-2b {rec['layout']} at world 1 (B={TRAIN_B} "
+            f"T={TRAIN_T}): peak_per_device {pred:.2f} GiB against "
+            f"max_memory_allocated {got:.2f} GiB measured ({gap:+.1%}"
+            f"{', above 20%' if abs(gap) > 0.2 else ''}); argument "
+            f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB, "
+            f"{rec['cost']['flops']:.3e} FLOPs [{smi}]")
+    if sorted(a for s in DRYRUN_SPLIT for a in s) != sorted(ARCH_IDS):
+        raise AssertionError(f"DRYRUN_SPLIT is not the archs {ARCH_IDS}")
+    for m in (False, True):
+        recs = [r for i in range(len(DRYRUN_SPLIT)) for r in _finish(
+            procs[f"cells_{m}_{i}"], f"{DRYRUN_SHAPE} cells", 900)]
+        if len(recs) != len(ARCH_IDS):
+            raise AssertionError(f"dry-run gave {len(recs)} cells")
+        for rec in recs:
+            if rec["status"] == "ok":
+                pred = rec["plan"]["predicted"]
+                coll = rec["collectives"]
+                log(f"dry-run {rec['arch']:22s} {rec['shape']} {rec['mesh']}"
+                    f" {rec['plan']['layout']:16s} "
+                    f"{rec['memory']['peak_per_device'] / 2**30:.2f} GiB/GPU"
+                    f" (planner {pred['resident'] / 2**30:.2f}), "
+                    f"{rec['cost']['flops']:.3e} FLOPs, collectives GB "
+                    + " ".join(f"{k} {v / 1e9:.3f}" for k, v in coll.items())
+                    + f" (planner {1e3 * pred['collective']:.1f} ms), "
+                    f"traced in {rec['seconds']['trace']:.1f} s")
+            else:
+                log(f"dry-run {rec['arch']:22s} {rec['shape']} "
+                    f"{rec['mesh']} {rec['status']}: "
+                    f"{rec.get('reason', '')}")
+    log(f"dry-run: its processes done {time.perf_counter() - procs['t0']:.1f}"
+        f" s after their start, {time.perf_counter() - t0:.1f} s waited "
+        "for them here")
+
+
+def multi_gpu_phase(smi: str) -> dict:
+    """The multi-GPU slice at world 1 over NCCL: the MoE layer's all-to-all
+    path, gemma-2b's sharded steps, qwen3's expert-parallel sharded steps,
+    the pipeline, flash at the context-parallel shape.  Returns gemma-2b's
+    runs by layout (their peaks are held to the dry-run's,
+    ``dryrun_lines``)."""
+    import logging
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    _free()
+    t0 = time.perf_counter()
+    with world_one() as mesh:
+        log(f"multi-GPU phase: NCCL process group of 1 rank, mesh "
+            f"{mesh.mesh_dim_names} {tuple(mesh.shape)}")
+        check_moe_a2a(mesh, smi)
+        _free()
+        runs = sharded_gemma(mesh, smi)
+        sharded_qwen3(mesh, smi)
+        check_pipeline(smi)
+    check_context_parallel_flash(smi)
+    log(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 # the tensor-core instantiations, which must not spill (their accumulators
@@ -2625,7 +3213,15 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+    dryruns: dict = {}
+    try:
+        return _main(smi, name, dryruns)
+    finally:
+        stop_dryruns(dryruns)
 
+
+def _main(smi: str, name: str, dryruns: dict) -> int:
+    """The phases; ``dryruns`` receives the dry-run's host processes."""
     # 1. build
     t0 = time.perf_counter()
     _build.build_all()
@@ -2697,11 +3293,21 @@ def main() -> int:
     serve_qwen3(smi)
     check_mixtral(smi)
 
+    # the dry-run's host processes run beside the training slice, the
+    # multi-GPU phase and the kernel times (device times, queued behind a
+    # sleep kernel): beside the host-bound serving paths they would slow
+    # them down
+    dryruns.update(start_dryruns())
+
     # the training slice: the trainer CLI, the full-width gradient check
     # and gemma-2b's full-depth train steps (through the backward kernel)
     trained = train_phases(smi)
     for kname in ("flash_attention_bwd", "ssd_intra_chunk_bwd"):
         launches[kname] = trained[kname]
+
+    # 7. the multi-GPU slice over NCCL at world 1, after the training
+    # phases (qwen3's sharded steps are held to their in-process runs)
+    world_one_runs = multi_gpu_phase(smi)
 
     # 5. times at the main path's shapes
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -2758,6 +3364,8 @@ def main() -> int:
         records.setdefault("ssd_intra_chunk_bwd", r)
     for t in (4, RAGGED_PREFILL[0]):
         time_moe_layer(t, smi)
+    # the dry-run's lines, its processes done by now
+    dryrun_lines(dryruns, world_one_runs, smi)
     log(f"kernels: {list(_build.KERNELS)}")
 
     source = {

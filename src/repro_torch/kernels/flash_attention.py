@@ -247,3 +247,74 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       flash_attention_bwd)
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, lengths=lengths)[0]
+
+
+# --------------------------------------------------------------------------
+# Abstract tensors (the dry-run)
+# --------------------------------------------------------------------------
+
+# FLOPs of the kernel calls made on abstract tensors in this process (the
+# dry-run adds them to its FLOP counter, which does not see a kernel)
+abstract_flops = 0.0
+
+
+def visible_pairs(tq: int, tk: int, *, causal: bool, window: int | None,
+                  q_offset: int) -> int:
+    """The (query, key) pairs the mask leaves, every key valid."""
+    import numpy as np         # host arithmetic (the dry-run fakes torch's)
+    w = NO_WINDOW if window is None else int(window)
+    pos = np.arange(q_offset, q_offset + tq, dtype=np.int64)
+    hi = np.minimum(pos, tk - 1) if causal else np.full_like(pos, tk - 1)
+    lo = np.maximum(pos - w + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _abstract_fwd(q, k, v, *, causal=True, window=None, q_offset=0,
+                  lengths=None):
+    """The forward kernel's outputs, allocated as it allocates them, and its
+    FLOPs counted; nothing computed.  For abstract (fake) tensors only."""
+    global abstract_flops
+    b, tq, hq, d = q.shape
+    pairs = visible_pairs(tq, k.shape[1], causal=causal, window=window,
+                          q_offset=q_offset)
+    abstract_flops += 4.0 * b * hq * d * pairs
+    return (torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device),
+            torch.empty((b, hq, tq), dtype=torch.float32, device=q.device))
+
+
+def _abstract_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+                  q_offset=0, lengths=None):
+    """The backward kernel's outputs and scratch, allocated as it allocates
+    them (``bwd_plan``), and its FLOPs (S and P recomputed, dP, dS·K, dSᵀ·Q,
+    Pᵀ·dO: five products) counted; nothing computed."""
+    global abstract_flops
+    b, tq, hq, d = q.shape
+    _, tk, hkv, _ = k.shape
+    pairs = visible_pairs(tq, tk, causal=causal, window=window,
+                          q_offset=q_offset)
+    abstract_flops += 10.0 * b * hq * d * pairs
+    scratch = [torch.empty((b, hq, tq), dtype=torch.float32,
+                           device=q.device)]
+    if q.dtype == torch.bfloat16:
+        plan = bwd_plan(b, tq, tk, hq, hkv, d, causal=causal, window=window,
+                        q_offset=q_offset)
+        scratch.append(torch.empty(plan["ds_bytes"] // 2,
+                                   dtype=torch.bfloat16, device=q.device))
+        if plan["splits"] > 1:
+            scratch.append(torch.empty(plan["partial_bytes"] // 4,
+                                       dtype=torch.float32, device=q.device))
+    out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    del scratch
+    return out
+
+
+def flash_attention_abstract(q, k, v, *, causal=True, window=None,
+                             q_offset=0, lengths=None):
+    """``flash_attention`` on abstract (fake) tensors: the same autograd
+    structure (``FlashAttentionFn`` under grad, saving what the kernel path
+    saves), each kernel replaced by its outputs' allocation and FLOPs."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, lengths, causal, window,
+                                      q_offset, _abstract_fwd, _abstract_bwd)
+    return _abstract_fwd(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, lengths=lengths)[0]

@@ -16,6 +16,13 @@ The tensor's device picks the path:
 
 No backend value sends a CUDA tensor to the plain version.  Models call only
 these entry points.
+
+An abstract tensor (a ``FakeTensor``: the dry-run, ``launch.dryrun``) takes
+flash attention's shape path, ``flash_attention.flash_attention_abstract``:
+the kernels' outputs and scratch allocated as on the card and their FLOPs
+counted, nothing computed.  The plain blocked loop would issue about 10⁵
+abstract ops a layer at a 4k context, and its fp32 block temporaries are
+not what the card holds.
 """
 
 from __future__ import annotations
@@ -57,8 +64,17 @@ def _on_cuda(x) -> bool:
 # Attention (prefill / training)
 # --------------------------------------------------------------------------
 
+def _abstract(x) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(x, FakeTensor)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                     lengths=None, block_q=512, block_k=512):
+    if _abstract(q):
+        return fa.flash_attention_abstract(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset,
+                                           lengths=lengths)
     if _on_cuda(q):
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, lengths=lengths)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import ctx as shard_ctx
 from . import layers as L
 from .config import ArchConfig
 from .transformer import (CACHE_DTYPE, attn_params, embed_params,
@@ -75,14 +76,24 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
     non-causal self-attention (roped q and k)."""
     b, t, _ = frames.shape
     positions = torch.arange(t, device=frames.device)[None].expand(b, t)
+    _no_seq_split(cfg)
     x = frames.to(torch.bfloat16)
     for p in unstack(params["encoder"]):
+        p = shard_ctx.gather_layer(p)
         h = L.apply_norm(cfg, p["ln1"], x)
         a, _ = L.attention(cfg, p["attn"], h, positions=positions,
                            mode="full", causal=False)
         x = x + a
         x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+        x = shard_ctx.constrain_act(x)
     return L.apply_norm(cfg, params["enc_norm"], x)
+
+
+def _no_seq_split(cfg: ArchConfig) -> None:
+    if shard_ctx.seq_axes():
+        raise NotImplementedError(
+            f"{cfg.name}: a sequence split of the encoder-decoder; no GPU "
+            "plan asks for one")
 
 
 def _cross_kv(cfg: ArchConfig, p: dict, enc: torch.Tensor
@@ -108,19 +119,21 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     decoder layer.  ``return_hidden``: the final-normed hidden states in
     place of the logits."""
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens).to(torch.bfloat16)
+    x = shard_ctx.constrain_act(
+        L.embed(params["embed"], tokens).to(torch.bfloat16))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
         positions = (lengths - 1)[:, None]
     else:
+        _no_seq_split(cfg)
         if enc is None:
             raise ValueError(f"mode {mode!r} needs the encoder states")
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
     layers = unstack(params["decoder"])
 
     def layer(i, x, lc=None):
-        p = layers[i]
+        p = shard_ctx.gather_layer(layers[i])
         h = L.apply_norm(cfg, p["ln1"], x)
         a, kv = L.attention(cfg, p["attn"], h, positions=positions,
                             mode=mode, causal=True,
@@ -137,6 +150,7 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                            mode=mode, causal=False, kv_override=(xk, xv))
         x = x + c
         x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+        x = shard_ctx.constrain_act(x)
         return x, (("k", kv["k"]), ("v", kv["v"]), ("xk", xk), ("xv", xv))
 
     built: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
@@ -161,7 +175,8 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x = x[:, -logits_tail:]
     if return_hidden:
         return x, new_cache
-    return L.unembed(cfg, params["embed"], x), new_cache
+    return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),
+            new_cache)
 
 
 def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import comm
+from repro_torch.sharding import ctx as shard_ctx
 from .config import ArchConfig, MoESpec
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -84,6 +86,12 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                  layers.  Its keys are not roped, and the query only when
                  ``causal``; decode attends over all Tk keys and writes no
                  cache.
+
+    Under a sequence split (``sharding.ctx.seq_group``), x is this rank's
+    slice of the sequence and ``positions`` are global: "full" self-attention
+    gathers k and v over the split (its backward reduce-scatters their
+    gradients) and runs the kernel with the queries offset to their place;
+    the cache entry keeps the rank's own k and v.
     """
     b, t, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -118,8 +126,13 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
         out = ops.decode_attention(q, k, v, full, window=None)
         new_cache = cache
     else:
-        out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                  lengths=lengths)
+        group = None if kv_override is not None else shard_ctx.seq_group()
+        kg, vg, q_offset = k, v, 0
+        if group is not None:
+            kg, vg = (comm.all_gather_autograd(a, 1, group) for a in (k, v))
+            q_offset = shard_ctx.seq_offset(t)
+        out = ops.flash_attention(q, kg, vg, causal=causal, window=window,
+                                  q_offset=q_offset, lengths=lengths)
         new_cache = {"k": k, "v": v}
     out = out.reshape(b, t, hq * hd)
     return (out @ p["wo"].to(COMPUTE_DTYPE)).to(x.dtype), new_cache
@@ -226,6 +239,10 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     new state into it in place (the engine owns the cache; the JAX engine
     rebuilds it functionally instead); other modes run the chunked scan from
     a zero state and return the state they end in."""
+    if shard_ctx.seq_axes():
+        raise NotImplementedError(
+            f"{cfg.name}: a sequence split of the SSM scan; no GPU plan asks "
+            "for one")
     spec = cfg.ssm
     b, t, d = x.shape
     di, n, nh = spec.d_inner(d), spec.d_state, spec.n_heads(d)

@@ -2,7 +2,8 @@
 the zoo: dense, SSM, hybrid, MoE, the encoder-decoder (audio) and the VLM.
 
 ``build_model(cfg)`` returns a ``Model`` exposing ``init``, ``init_cache``,
-the three step kinds ``apply_train / apply_prefill / apply_decode``, and the
+their abstract counterparts ``param_specs``, ``cache_specs`` and
+``input_specs`` (``meta`` tensors, for the dry-run), the three step kinds ``apply_train / apply_prefill / apply_decode``, and the
 analytic cost bridge to the HiDP planner: ``step_flops``, ``param_bytes`` and
 ``block_costs`` (a ``ModelDAG``), copies of the JAX package's arithmetic.
 """
@@ -112,6 +113,16 @@ class Model:
             return vlm.init_params(self.cfg, generator, dev, dtype)
         return transformer.init_params(self.cfg, generator, dev, dtype)
 
+    def param_specs(self, dtype: torch.dtype = torch.float32) -> dict:
+        """The parameter tree as ``meta`` tensors: the shapes and dtypes of
+        ``init``'s, no storage (the dry-run's abstract parameters)."""
+        meta = torch.device("meta")
+        if self.cfg.family == "audio":
+            return encdec.init_params(self.cfg, None, meta, dtype)
+        if self.cfg.family == "vlm":
+            return vlm.init_params(self.cfg, None, meta, dtype)
+        return transformer.init_params(self.cfg, None, meta, dtype)
+
     def init_cache(self, batch: int, max_len: int, device="cuda",
                    enc_len: int | None = None) -> dict:
         """The decode cache; the audio family's cross cache holds
@@ -190,6 +201,38 @@ class Model:
         return transformer.forward(cfg, params, batch["tokens"],
                                    mode="decode", cache=cache,
                                    lengths=lengths, moe_impl=moe_impl)
+
+    # ----------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """``meta`` stand-ins for every model input of ``shape``'s step
+        (int32 tokens, targets and lengths; bf16 frames and vision)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(shp, dtype=torch.bfloat16):
+            return torch.empty(tuple(int(s) for s in shp), dtype=dtype,
+                               device="meta")
+        i32 = torch.int32
+        if shape.kind == "decode":      # one new token against a cache of S
+            return {"tokens": meta((B, 1), i32), "lengths": meta((B,), i32)}
+        specs = {"tokens": meta((B, S), i32)}
+        specs["targets" if shape.kind == "train" else "lengths"] = meta(
+            (B, S) if shape.kind == "train" else (B,), i32)
+        if cfg.family == "audio":
+            specs["frames"] = meta((B, S // 2, cfg.d_model))
+        if cfg.family == "vlm":
+            specs["vision"] = meta((B, cfg.n_vision_tokens, cfg.d_model))
+        return specs
+
+    def cache_specs(self, shape: ShapeConfig) -> dict:
+        """The decode cache of ``shape`` as ``meta`` tensors."""
+        B, S = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        if self.cfg.family == "audio":
+            return encdec.init_cache(self.cfg, B, S, S // 2, meta)
+        if self.cfg.family == "vlm":
+            return vlm.init_cache(self.cfg, B, S, meta)
+        return transformer.init_cache(self.cfg, B, S, meta)
 
     # ------------------------------------------------------------ cost model
     def step_flops(self, shape: ShapeConfig) -> float:

@@ -1,8 +1,10 @@
-"""The expert-parallel MoE step at an EP axis of width 1, ported from
-``repro.models.moe_ep.moe_ep_a2a``.
+"""The expert-parallel MoE step, ported from
+``repro.models.moe_ep.moe_ep_a2a``: routed tokens go to the ranks that own
+their experts over an all-to-all, through grouped products there, and back.
 
-On one GPU the JAX function's all-to-alls are identities, and what is left
-is its local step (``moe_ep.py:147-225`` there), which this module computes:
+With no mesh published (``sharding.ctx``), the step runs at an EP axis of
+width 1, in this process: the reference's all-to-alls are identities there,
+and what is left is its local step (``moe_ep.py:147-225`` there):
 
   1. routing (fp32 softmax, top-k, renormalised), as ``layers.moe_router``;
   2. the capacity bound: of the t·k assignments, those whose flat index is
@@ -11,20 +13,34 @@ is its local step (``moe_ep.py:147-225`` there), which this module computes:
      the experts' token groups (gate, up, then down after the fp32 SiLU);
   4. the rows put back in assignment order and combined, weighted, in fp32.
 
+With a mesh published, the step is the reference's across the ranks of the
+EP axis (``_ep_step``): each rank routes its own token slice (or, when the
+sequence is already split over the EP axis, its own tokens), fills
+capacity-bounded (ep, cap, d) dispatch buffers by destination rank and
+position, exchanges them with ``all_to_all_single`` (autograd-aware),
+computes its local experts' grouped products, sends the rows back and
+combines them, then all-gathers the token slices over the EP axis unless
+the tokens were its own.  Fewer experts than EP ranks replicate each expert
+over ``ep // E`` ranks; counts that divide neither way, or a token slice
+that does not divide, run ``layers.moe_dense`` as the reference does.
+Expert stacks may come whole (E, d, f), and the rank takes its experts, or
+as the rank's own (E / ep, d, f), as the sharded step gathers them.
+
 With ``a2a_dtype="int8"`` (the ``"ep_a2a_q8"`` lowering) the payload of
 both all-to-alls crosses as int8 with fp32 row scales, as in the reference
-(``_a2a_i8``, ``moe_ep.py:40-71`` there): at width 1 the all-to-alls are
-identities and only the quantisation round trip is left, applied where the
-reference applies it, to the gathered token rows in x's dtype before the
-bf16 cast and to the grouped output cast to fp32 before the combine.  Its
-gradient is straight-through, itself quantised (``A2AInt8Fn``).
+(``_a2a_i8``, ``moe_ep.py:40-71`` there), with a straight-through gradient
+that is itself quantised on the reverse all-to-all.  At width 1 the
+all-to-alls are identities and only the quantisation round trip is left
+(``A2AInt8Fn``), applied where the reference applies it, to the gathered
+token rows in x's dtype before the bf16 cast and to the grouped output cast
+to fp32 before the combine.
 
 The grouped product is ``torch._grouped_mm``, the counterpart of the XLA
 primitive ``jax.lax.ragged_dot`` (no Pallas kernel computes it in the JAX
 package).  It takes the sorted rows (n, d), the expert stack (E, d, f) as it
 lies in the parameters and the groups' int32 end offsets, reads only the
 experts that have rows, and accepts empty groups; autograd differentiates
-it.  The all-to-all over several GPUs comes with the multi-GPU slice.
+it.
 """
 
 from __future__ import annotations
@@ -32,18 +48,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import comm
+from repro_torch.sharding import ctx as shard_ctx
 from . import layers as L
 from .config import ArchConfig
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _world_size() -> int:
-    dist = torch.distributed
-    return (dist.get_world_size()
-            if dist.is_available() and dist.is_initialized() else 1)
 
 
 def capacity(t: int, top_k: int, capacity_factor: float) -> int:
@@ -87,18 +99,23 @@ class A2AInt8Fn(torch.autograd.Function):
 
 
 def moe_ep_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+               axis: str | None = None,
                capacity_factor: float | None = None,
                a2a_dtype: str = "bfloat16") -> torch.Tensor:
-    """x: (B, T, d); p: one layer's MoE parameters (router (d, E), w_gate and
-    w_up (E, d, f), w_down (E, f, d)).  Returns (B, T, d) in x's dtype, like
-    ``layers.moe_dense``; assignments beyond the capacity add nothing.
+    """x: (B, T, d), this rank's block under the published activation spec;
+    p: one layer's MoE parameters (router (d, E), w_gate and w_up (E, d, f),
+    w_down (E, f, d), or the rank's experts of them).  Returns (B, T, d) in
+    x's dtype, like ``layers.moe_dense``; assignments beyond the capacity
+    add nothing.  ``axis``: the EP mesh axis (the context's by default);
     ``a2a_dtype``: the all-to-alls' payload, "bfloat16" or "int8"."""
     if a2a_dtype not in A2A_DTYPES:
         raise ValueError(f"a2a_dtype {a2a_dtype!r} not in {A2A_DTYPES}")
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "the all-to-all across GPUs comes with the multi-GPU slice; this "
-            "port runs moe_ep_a2a at an EP axis of width 1, in one process")
+    mesh = shard_ctx.get_mesh()
+    if mesh is not None:
+        return _ep_step(cfg, p, x, mesh,
+                        axis or shard_ctx.get_ep_axis() or "model",
+                        capacity_factor or cfg.moe.capacity_factor,
+                        a2a_dtype)
     spec = cfg.moe
     k = spec.top_k
     b, s, d = x.shape
@@ -136,3 +153,150 @@ def moe_ep_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, flat_tok, contrib)
     return y.reshape(b, s, d).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Across the ranks of the EP axis
+# --------------------------------------------------------------------------
+
+class A2AInt8GroupFn(torch.autograd.Function):
+    """The reference's ``_a2a_i8`` across ranks: the payload crosses as
+    int8 with fp32 row scales and is dequantised to v's dtype on arrival;
+    the gradient goes back the same way, itself quantised."""
+
+    @staticmethod
+    def forward(ctx, v: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        q, s = _quant_i8(v)
+        return (comm.all_to_all(q, group).float()
+                * comm.all_to_all(s, group)).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        q, s = _quant_i8(g)
+        return (comm.all_to_all(q, ctx.group).float()
+                * comm.all_to_all(s, ctx.group)).to(g.dtype), None
+
+
+def _a2a_payload(v: torch.Tensor, group, a2a_dtype: str) -> torch.Tensor:
+    """The dispatch or return all-to-all of (ep, cap, d) rows."""
+    if a2a_dtype == "int8":
+        return A2AInt8GroupFn.apply(v, group)
+    return comm.all_to_all_autograd(v, group)
+
+
+def _axes_of(entry) -> set:
+    if entry is None:
+        return set()
+    return set(entry) if isinstance(entry, tuple) else {entry}
+
+
+def _ep_step(cfg: ArchConfig, p: dict, x: torch.Tensor, mesh, ep_axis,
+             cf: float, a2a_dtype: str) -> torch.Tensor:
+    """``moe_ep_a2a`` over the EP axis of ``mesh`` (``moe_ep.py:84-232``
+    there)."""
+    spec = cfg.moe
+    k, E = spec.top_k, spec.num_experts
+    names = list(mesh.mesh_dim_names)
+    if isinstance(ep_axis, str):
+        ep = mesh.shape[names.index(ep_axis)]
+    else:
+        ep = 1
+    if E % ep == 0:
+        replicas, e_loc = 1, E // ep
+    elif ep % E == 0:
+        # fewer experts than EP ranks (mixtral's 8 over a 16-wide axis):
+        # each expert on ep // E ranks, tokens balanced over its replicas
+        replicas, e_loc = ep // E, 1
+    else:
+        return L.moe_dense(cfg, p, x)
+    act_spec = shard_ctx.get_act_spec() or ()
+    # the sequence already split over the EP axis: each rank's block is its
+    # token slice, no slicing on entry and no all-gather on exit.  So is a
+    # batch split over it (the reference slices and all-gathers there as
+    # if the blocks were replicated, which mixes the ranks' tokens; no plan
+    # of its asks for that)
+    pre_sharded = ep_axis in set().union(
+        *(_axes_of(e) for e in tuple(act_spec)[:2]))
+    bl, tl, d = x.shape
+    t_full = bl * tl
+    if not pre_sharded and t_full % ep:
+        return L.moe_dense(cfg, p, x)
+    rank = mesh.get_local_rank(names.index(ep_axis)) if ep > 1 else 0
+    group = mesh.get_group(ep_axis)
+    x_all = x.reshape(t_full, d)
+    if pre_sharded:
+        t, x2 = t_full, x_all
+    else:
+        # activations replicated over the EP axis: each rank owns a 1/ep
+        # token slice, so that no assignment is dispatched twice
+        t = t_full // ep
+        x2 = x_all[rank * t:(rank + 1) * t]
+    cap = _round_up(max(int(t * k * cf / ep), 8), 8)
+    w_gate, w_up, w_down = (_local_experts(p[n], E, e_loc, replicas, rank)
+                            for n in ("w_gate", "w_up", "w_down"))
+    # 1. routing (fp32)
+    vals, idx = L.moe_router(spec, p["router"], x2)
+    flat_e = idx.reshape(-1).long()                          # (t*k,)
+    flat_w = vals.reshape(-1)
+    flat_tok = torch.arange(t * k, device=x.device) // k
+    if replicas == 1:
+        dest = flat_e // e_loc
+        local_e = flat_e % e_loc
+    else:
+        dest = flat_e * replicas + (flat_tok % replicas)
+        local_e = torch.zeros_like(flat_e)
+    # 2. capacity-bounded dispatch buffers: an assignment's position is the
+    # count of earlier assignments to its destination; those at or past
+    # ``cap`` go to a spare slot that is cut off
+    onehot = F.one_hot(dest, ep)
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    keep = pos < cap
+    slot = torch.where(keep, pos, cap)
+    send_x = x2.new_zeros((ep, cap + 1, d)).index_put(
+        (dest, slot), x2[flat_tok])[:, :cap]
+    send_el = torch.zeros((ep, cap + 1), dtype=torch.int32,
+                          device=x.device).index_put(
+        (dest, slot), torch.where(keep, local_e, 0).to(torch.int32))[:, :cap]
+    # 3. to the experts' ranks
+    recv_x = _a2a_payload(send_x, group, a2a_dtype)
+    rel = comm.all_to_all(send_el, group).reshape(ep * cap).long()
+    n = ep * cap
+    # 4. sorted by local expert, grouped products, unsorted
+    sorted_e, order = torch.sort(rel, stable=True)
+    offs = torch.searchsorted(
+        sorted_e, torch.arange(e_loc, dtype=sorted_e.dtype,
+                               device=x.device), right=True).to(torch.int32)
+    bf = L.COMPUTE_DTYPE
+    xs = recv_x.reshape(n, d)[order].to(bf)
+    gate = torch._grouped_mm(xs, w_gate.to(bf), offs=offs)
+    up = torch._grouped_mm(xs, w_up.to(bf), offs=offs)
+    h = F.silu(gate.float()).to(bf) * up
+    out = torch._grouped_mm(h, w_down.to(bf), offs=offs)
+    back = torch.empty_like(out)
+    back[order] = out                                   # unsort
+    back = back.reshape(ep, cap, d)
+    # 5. back to the tokens' ranks, and the weighted combine there
+    back = _a2a_payload(back.float() if a2a_dtype == "int8" else back,
+                        group, a2a_dtype)
+    contrib = back[dest, pos.clamp(max=cap - 1)].float()      # (t*k, d)
+    contrib = contrib * (flat_w * keep)[:, None]
+    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    y = y.index_add(0, flat_tok, contrib).to(x.dtype)
+    if pre_sharded:
+        return y.reshape(bl, tl, d)
+    # replication over the EP axis restored: each rank computed its slice
+    return comm.all_gather_autograd(y, 0, group).reshape(bl, tl, d)
+
+
+def _local_experts(w: torch.Tensor, E: int, e_loc: int, replicas: int,
+                   rank: int) -> torch.Tensor:
+    """This rank's experts of a stack that is whole (E, ...) or already the
+    rank's own (e_loc, ...)."""
+    if w.shape[0] == E and (E != e_loc or replicas > 1):
+        first = rank // replicas if replicas > 1 else rank * e_loc
+        return w[first:first + e_loc]
+    if w.shape[0] != e_loc:
+        raise ValueError(f"expert stack of {w.shape[0]} experts: neither all "
+                         f"{E} nor this rank's {e_loc}")
+    return w

@@ -24,6 +24,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import ctx as shard_ctx
 from . import layers as L
 from .config import ArchConfig
 
@@ -260,7 +261,12 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
                 layer_cache: dict | None, lengths: torch.Tensor | None,
                 moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
     """One layer; returns its output and its cache entries (the prompt's
-    for prefill, the updated views of ``layer_cache`` for decode)."""
+    for prefill, the updated views of ``layer_cache`` for decode).  Under
+    the sharded step ``p``'s leaves are DTensors, gathered here (inside the
+    layer's remat checkpoint) to the local tensors the layer computes
+    with."""
+    p = shard_ctx.gather_layer(p)
+
     def views(*keys):
         return (None if layer_cache is None else
                 {k: layer_cache[k] for k in keys})
@@ -310,15 +316,19 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     the logits.
     """
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens).to(L.COMPUTE_DTYPE)
+    x = shard_ctx.constrain_act(
+        L.embed(params["embed"], tokens).to(L.COMPUTE_DTYPE))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
         positions = (lengths - 1)[:, None]
         kv_len = cache["k"].shape[2] if "k" in cache else t
     else:
-        positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
-        kv_len = t
+        # under a sequence split, ``tokens`` are this rank's slice of the
+        # sequence: global positions, and the whole sequence's length
+        positions = (torch.arange(t, device=tokens.device)
+                     + shard_ctx.seq_offset(t))[None].expand(b, t)
+        kv_len = t * shard_ctx.seq_rank_size()[1]
     wsched = window_schedule(cfg, kv_len)
     layers = unstack(params["layers"])
 
@@ -326,9 +336,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         # a window of -1 means "no window"
         w = None if wsched is None else (NO_WINDOW if wsched[i] < 0
                                          else wsched[i])
-        return apply_layer(cfg, layers[i], x, mode=mode, positions=positions,
-                           window=w, layer_cache=lc, lengths=lengths,
-                           moe_impl=moe_impl)
+        y, c = apply_layer(cfg, layers[i], x, mode=mode,
+                           positions=positions, window=w, layer_cache=lc,
+                           lengths=lengths, moe_impl=moe_impl)
+        return shard_ctx.constrain_act(y), c
 
     built: dict[str, list] = {}
     groups = remat_groups(cfg.n_layers, remat and mode == "train",
@@ -353,4 +364,5 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x = x[:, -logits_tail:]
     if return_hidden:
         return x, new_cache
-    return L.unembed(cfg, params["embed"], x), new_cache
+    return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),
+            new_cache)

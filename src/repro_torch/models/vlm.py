@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import ctx as shard_ctx
 from . import layers as L
 from .config import ArchConfig
 from .transformer import (CACHE_DTYPE, attn_params, embed_params,
@@ -82,12 +83,17 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     logits."""
     b, t = tokens.shape
     hkv, hd = cfg.n_kv_heads, cfg.hd
-    x = L.embed(params["embed"], tokens).to(torch.bfloat16)
+    x = shard_ctx.constrain_act(
+        L.embed(params["embed"], tokens).to(torch.bfloat16))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
         positions = (lengths - 1)[:, None]
     else:
+        if shard_ctx.seq_axes():
+            raise NotImplementedError(
+                f"{cfg.name}: a sequence split of the VLM; no GPU plan asks "
+                "for one")
         if vision is None:
             raise ValueError(f"mode {mode!r} needs the vision embeddings")
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
@@ -98,6 +104,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     def group(gi, x, gc=None):
         kvs = []
         for j, p in enumerate(selfs[gi]):
+            p = shard_ctx.gather_layer(p)
             h = L.apply_norm(cfg, p["ln1"], x)
             a, kv = L.attention(cfg, p["attn"], h, positions=positions,
                                 mode=mode, causal=True,
@@ -106,9 +113,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                                 lengths=lengths)
             x = x + a
             x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+            x = shard_ctx.constrain_act(x)
             kvs.append(kv)
         # the group's cross-attention layer
-        pc = crosses[gi]
+        pc = shard_ctx.gather_layer(crosses[gi])
         h = L.apply_norm(cfg, pc["ln1"], x)
         if mode == "decode":
             xk, xv = gc["xk"], gc["xv"]
@@ -121,7 +129,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                            mode=mode, causal=False, kv_override=(xk, xv))
         x = x + torch.tanh(pc["gate_attn"]).to(x.dtype) * c
         m = L.mlp(cfg, pc["mlp"], L.apply_norm(cfg, pc["ln2"], x))
-        x = x + torch.tanh(pc["gate_mlp"]).to(x.dtype) * m
+        x = shard_ctx.constrain_act(
+            x + torch.tanh(pc["gate_mlp"]).to(x.dtype) * m)
         return x, kvs, xk, xv
 
     built: dict[str, list] = {"k": [], "v": [], "xk": [], "xv": []}
@@ -148,4 +157,5 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x = x[:, -logits_tail:]
     if return_hidden:
         return x, new_cache
-    return L.unembed(cfg, params["embed"], x), new_cache
+    return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),
+            new_cache)

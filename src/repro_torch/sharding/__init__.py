@@ -1,8 +1,13 @@
-"""The port's copy of ``repro.sharding``'s planner: HiDP's two tiers over a
-mesh of accelerators, with the chip (``V5E`` or ``H100``) a parameter.
-The JAX package's sharding contexts, specs and pipeline are not ported yet
-(``ROADMAP.md``).  The one planning function, ``plan.plan(model, shape,
-mesh, chip)``, is not re-exported here: the name would hide the module."""
+"""The port's copy of ``repro.sharding``: HiDP's two-tier planner over a
+mesh of accelerators, with the chip (``V5E`` or ``H100``) a parameter
+(``plan``), and the multi-GPU layer that runs its plans with
+``torch.distributed``: the activation-sharding context (``ctx``), the
+parameter, batch and cache specs and their DTensor placements (``specs``),
+the collectives the model code issues (``comm``), the sharded train step
+(``spmd``) and the GPipe pipeline (``pipeline``).  Tensor-parallel layouts
+(a plan with ``tp_axes``) are not ported yet (``ROADMAP.md``).  The one
+planning function, ``plan.plan(model, shape, mesh, chip)``, is not
+re-exported here: the name would hide the module."""
 
 from .plan import (GPU_MULTI_NODE, GPU_NODE, H100, MULTI_POD,  # noqa: F401
                    SINGLE_POD, V5E, ChipSpec, MeshDesc, ShardingPlan,

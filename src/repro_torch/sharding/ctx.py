@@ -1,0 +1,141 @@
+"""Activation-sharding context, ported from ``repro.sharding.ctx``.
+
+The launcher publishes the HiDP plan's activation and logits specs, the
+mesh and the expert-parallel axis here.  The model code pins activations to
+them at layer boundaries (``constrain_act`` / ``constrain_logits``): a
+DTensor is redistributed to the published placements, a plain tensor comes
+back unchanged, as the reference's constraint is a no-op without a mesh.
+
+The port's sharded step runs the model on each rank's local tensors, as the
+reference's ``shard_map`` bodies do, and publishes two more things here:
+
+* ``gather_layer``: how one layer's parameters (DTensor shards) become the
+  local tensors the layer computes with.  ``sharding.spmd`` sets it; every
+  family's layer calls it first, inside the layer's remat checkpoint, so
+  that the backward pass gathers again instead of keeping the weights;
+* the sequence split, read off the activation spec's sequence entry: under
+  it, attention gathers keys and values over ``seq_group()`` and offsets
+  its queries by ``seq_offset``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable
+
+from .specs import Spec, placements
+
+_ACT_SPEC: Spec | None = None       # (batch, seq, d)
+_LOGITS_SPEC: Spec | None = None    # (batch, seq, vocab)
+_MESH = None                        # DeviceMesh of the collective paths
+_EP_AXIS: str | tuple | None = None  # expert-parallel mesh axis
+_GATHER: Callable | None = None     # the sharded step's per-layer gather
+
+
+def set_specs(act: Spec | None, logits: Spec | None, mesh=None,
+              ep_axis=None) -> None:
+    global _ACT_SPEC, _LOGITS_SPEC, _MESH, _EP_AXIS
+    _ACT_SPEC, _LOGITS_SPEC = act, logits
+    _MESH, _EP_AXIS = mesh, ep_axis
+
+
+@contextlib.contextmanager
+def plan_specs(act: Spec | None, logits: Spec | None, mesh=None,
+               ep_axis=None):
+    prev = (_ACT_SPEC, _LOGITS_SPEC, _MESH, _EP_AXIS)
+    set_specs(act, logits, mesh, ep_axis)
+    try:
+        yield
+    finally:
+        set_specs(*prev)
+
+
+def get_mesh():
+    return _MESH
+
+
+def get_ep_axis():
+    return _EP_AXIS
+
+
+def get_act_spec() -> Spec | None:
+    return _ACT_SPEC
+
+
+def _constrain(x, spec: Spec | None):
+    if spec is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x                      # local tensors: the layout is given
+    return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
+
+
+def constrain_act(x):
+    """Pin a (B, T, d) activation to the plan's layout."""
+    return _constrain(x, _ACT_SPEC)
+
+
+def constrain_logits(x):
+    return _constrain(x, _LOGITS_SPEC)
+
+
+# --------------------------------------------------------------------------
+# The sharded step's local view
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def layer_gather(fn: Callable | None):
+    """Publish ``fn(layer_params) -> local layer_params`` for the layers."""
+    global _GATHER
+    prev, _GATHER = _GATHER, fn
+    try:
+        yield
+    finally:
+        _GATHER = prev
+
+
+def gather_layer(p: Any) -> Any:
+    """One layer's parameters as the local tensors it computes with; the
+    identity unless a sharded step published a gather."""
+    return p if _GATHER is None else _GATHER(p)
+
+
+def seq_axes() -> tuple[str, ...]:
+    """The mesh axes the activations' sequence dim is split over."""
+    if _MESH is None or _ACT_SPEC is None or len(_ACT_SPEC) < 2:
+        return ()
+    e = _ACT_SPEC[1]
+    return () if e is None else (tuple(e) if isinstance(e, tuple) else (e,))
+
+
+def _seq_axis() -> str | None:
+    """The one mesh axis of the sequence split, or None without one."""
+    axes = seq_axes()
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"a sequence split over several axes {axes}: no GPU plan asks "
+            "for one")
+    return axes[0] if axes else None
+
+
+def seq_group():
+    """The process group of the sequence split, or None without one."""
+    axis = _seq_axis()
+    return None if axis is None else _MESH.get_group(axis)
+
+
+def seq_rank_size() -> tuple[int, int]:
+    """(this rank's index in the sequence split, its width); (0, 1)
+    without a split."""
+    axis = _seq_axis()
+    if axis is None:
+        return 0, 1
+    i = list(_MESH.mesh_dim_names).index(axis)
+    return _MESH.get_local_rank(i), _MESH.shape[i]
+
+
+def seq_offset(t_local: int) -> int:
+    """The global position of this rank's first token."""
+    r, _ = seq_rank_size()
+    return r * t_local

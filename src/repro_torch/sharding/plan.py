@@ -32,13 +32,15 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import dp_partitioner
 from repro_torch.core.dag import ModelPartition
 from repro_torch.models.config import ArchConfig, ShapeConfig
-from repro_torch.models.model import Model
+
+if TYPE_CHECKING:           # the model modules import the sharding context
+    from repro_torch.models.model import Model
 
 
 @dataclasses.dataclass(frozen=True)

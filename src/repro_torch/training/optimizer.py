@@ -71,9 +71,13 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 def init(params: Any, state_dtype=torch.float32,
          master: bool = False) -> OptState:
     """Zero moments of ``state_dtype`` (a torch dtype) beside each
-    parameter, on its device; with ``master``, fp32 copies of the
-    parameters."""
+    parameter, on its device (DTensors of its placements beside a DTensor);
+    with ``master``, fp32 copies of the parameters."""
+    DTensor = _dtensor_type()
+
     def zeros(p):
+        if DTensor is not None and isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=state_dtype)   # p's placements
         return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
 
     mw = (tree.map(lambda p: p.detach().to(torch.float32, copy=True), params)
@@ -84,9 +88,63 @@ def init(params: Any, state_dtype=torch.float32,
                     v=tree.map(zeros, params), master=mw)
 
 
+def init_abstract(param_specs: Any, state_dtype=torch.float32,
+                  master: bool = False) -> OptState:
+    """``init``'s state as ``meta`` tensors, beside an abstract parameter
+    tree (``Model.param_specs``)."""
+    def meta(p, dtype):
+        return torch.empty(p.shape, dtype=dtype, device="meta")
+
+    return OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                    m=tree.map(lambda p: meta(p, state_dtype), param_specs),
+                    v=tree.map(lambda p: meta(p, state_dtype), param_specs),
+                    master=(tree.map(lambda p: meta(p, torch.float32),
+                                     param_specs) if master else None))
+
+
+def _dtensor_type():
+    """``DTensor``, or None where torch has no distributed package."""
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _replicas(x) -> int:
+    """How many ranks hold each element of a DTensor's shards."""
+    from torch.distributed.tensor import Replicate
+    n = 1
+    for size, pl in zip(x.device_mesh.shape, x.placements):
+        if isinstance(pl, Replicate):
+            n *= size
+    return n
+
+
 def global_norm(grads: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.leaves(grads)))
+    """The L2 norm over every leaf.  Leaves that are DTensors (the sharded
+    step's gradients) count each element once over the mesh: each rank sums
+    the squares of its shards, a shard held by r ranks counts 1/r, and one
+    all-reduce over the mesh adds the ranks' sums, so that every rank clips
+    by the same, global norm."""
+    DTensor = _dtensor_type()
+    leaves = tree.leaves(grads)
+    if DTensor is None or not any(isinstance(x, DTensor) for x in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in leaves))
+    from repro_torch.sharding import comm
+    mesh = next(x.device_mesh for x in leaves if isinstance(x, DTensor))
+    total = sum(torch.sum(torch.square(x.to_local().to(torch.float32)))
+                / _replicas(x) for x in leaves)
+    return torch.sqrt(comm.all_reduce(total, _world_of(mesh)))
+
+
+def _world_of(mesh):
+    """The process group spanning ``mesh`` (the default group)."""
+    import torch.distributed as dist
+    if mesh.size() != dist.get_world_size():
+        raise NotImplementedError(f"a mesh of {mesh.size()} ranks in a "
+                                  f"world of {dist.get_world_size()}")
+    return dist.group.WORLD
 
 
 @torch.no_grad()
@@ -94,7 +152,9 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any,
                   state: OptState) -> tuple[Any, OptState, dict]:
     """One AdamW step with global-norm clipping.  Returns (params, state,
     metrics); the state is ``state`` itself, its moments and master copies
-    updated in place (see the module's note)."""
+    updated in place (see the module's note).  Parameters, gradients and
+    state may be DTensors of matching placements (the sharded step): each
+    rank updates its shards, and the clip norm is global."""
     gnorm = global_norm(grads)
     # a tensor numerator: ``float / tensor`` would round twice (a
     # reciprocal, then a product)
@@ -107,7 +167,23 @@ def apply_updates(cfg: OptConfig, params: Any, grads: Any,
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
     sd = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
 
+    DTensor = _dtensor_type()
+
+    def local(x):
+        return (x.to_local() if DTensor is not None and isinstance(x, DTensor)
+                else x)
+
     def upd(p, g, m, v, mw):
+        new = _upd(local(p), local(g), local(m), local(v),
+                   None if mw is None else local(mw))
+        if DTensor is not None and isinstance(p, DTensor):
+            # every leaf of a sharded state has its parameter's placements
+            return DTensor.from_local(new, p.device_mesh, p.placements,
+                                      run_check=False, shape=p.shape,
+                                      stride=p.stride())
+        return new
+
+    def _upd(p, g, m, v, mw):
         g = g.to(torch.float32) * scale           # clipped, leaf by leaf
         m_new = (cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g).to(sd)
         v_new = (cfg.b2 * v.to(torch.float32)

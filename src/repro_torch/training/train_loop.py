@@ -2,9 +2,10 @@
 (whole or in sequence chunks), microbatched gradient accumulation in fp32
 and remat, all driven by a ``ShardingPlan``.
 
-On one device the reference's ``shard_ctx.constrain_logits`` is the
-identity; the sharding contexts come with the multi-GPU slice, so the port
-leaves it out.
+``chunked_ce_loss`` pins each slice's logits with ``shard_ctx.
+constrain_logits`` as the reference does: the identity on the local tensors
+the port's steps compute with (``sharding.spmd`` runs this same loss on
+each rank's shard).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.model import Model
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.sharding.plan import ShardingPlan
 from . import optimizer as optim
 from . import tree
@@ -48,7 +50,7 @@ def chunked_ce_loss(model: Model, params: dict, hidden: torch.Tensor,
     ts = targets.reshape(b, chunks, t // chunks).swapaxes(0, 1)
 
     def body(h, tg):
-        logits = model.unembed_hidden(params, h)
+        logits = shard_ctx.constrain_logits(model.unembed_hidden(params, h))
         return (torch.logsumexp(logits, dim=-1) - _gold(logits, tg)).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)

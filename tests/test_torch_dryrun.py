@@ -1,0 +1,135 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) on the CPU: the
+collective-bytes sum on a recorded sequence, in the manner of
+tests/test_dryrun_tools.py's HLO parser test; ``run_cell`` at the fake
+world of ``GPU_NODE`` (8 ranks) and ``GPU_MULTI_NODE`` (16) for reduced
+configurations, whose argument bytes must be the sum of one rank's shards
+and whose FLOPs per GPU must agree with the analytic ``step_flops``; the
+GPipe pipeline under ``force_global="model"``; and a tensor-parallel cell
+recorded ``not_ported``.  No process group outlives a cell.
+"""
+
+import dataclasses
+import logging
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models import SHAPES, build_model  # noqa: E402
+from repro_torch.sharding import GPU_MULTI_NODE, GPU_NODE, plan_gpu  # noqa: E402
+from repro_torch.sharding import specs  # noqa: E402
+from repro_torch.training import tree  # noqa: E402
+
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+
+RECORDS = [
+    ("_c10d_functional::all_gather_into_tensor", [((512, 256),
+                                                    torch.float32)]),
+    ("_c10d_functional::all_reduce", [((64, 64), torch.bfloat16)]),
+    ("_c10d_functional::reduce_scatter_tensor", [((32,), torch.float32)]),
+    ("_c10d_functional::all_to_all_single", [((4, 8), torch.float32),
+                                             ((4, 8), torch.float32)]),
+    ("c10d::recv_", [((16, 2), torch.int32)]),
+    ("_c10d_functional::wait_tensor", [((999, 999), torch.float32)]),
+    ("aten::mm", [((999, 999), torch.float32)]),
+]
+
+
+def test_collective_bytes_sum():
+    out = dryrun.collective_bytes(RECORDS)
+    assert out["all-gather"] == 512 * 256 * 4
+    assert out["all-reduce"] == 64 * 64 * 2
+    assert out["reduce-scatter"] == 32 * 4
+    assert out["all-to-all"] == 2 * 4 * 8 * 4
+    assert out["collective-permute"] == 16 * 2 * 4
+    assert out["total"] == sum(v for k, v in out.items() if k != "total")
+    assert dryrun.collective_bytes(RECORDS[-2:])["total"] == 0
+
+
+def _nbytes(shape, dtype) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+def _shard_bytes(model, shape, plan, mesh) -> int:
+    """One rank's parameters, AdamW state and batch, from the plan's specs
+    alone."""
+    master = plan.param_dtype == "bfloat16"
+    pdt = torch.bfloat16 if master else torch.float32
+    sdt = torch.bfloat16 if plan.opt_dtype == "bfloat16" else torch.float32
+    params = model.param_specs(pdt)
+
+    def leaf_bytes(path, p):
+        spec = specs.sanitize(mesh, specs.param_pspec(path, p, plan),
+                              tuple(p.shape))
+        local = specs.local_shape(mesh, spec, tuple(p.shape))
+        return (_nbytes(local, p.dtype) + 2 * _nbytes(local, sdt)
+                + (_nbytes(local, torch.float32) if master else 0))
+    total = sum(tree.leaves(specs.tree_map_with_path(leaf_bytes, params)))
+    batch = model.input_specs(shape)
+    for k, v in specs.batch_specs_tree(mesh, batch, plan).items():
+        total += _nbytes(specs.local_shape(mesh, v, tuple(batch[k].shape)),
+                         batch[k].dtype)
+    return total + 4                              # the int32 step
+
+
+CELLS = [("gemma-2b", False), ("qwen3-moe-30b-a3b", False),
+         ("gemma-2b", True)]
+
+
+@pytest.mark.parametrize("aid,multi_node", CELLS)
+def test_train_cell_at_fake_world(aid, multi_node):
+    cfg = get_config(aid).reduced()
+    desc = GPU_MULTI_NODE if multi_node else GPU_NODE
+    rec = dryrun.run_cell(aid, "train_4k", multi_node, out_dir=None,
+                          cfg=cfg)
+    assert rec["status"] == "ok", rec
+    model, shape = build_model(cfg), SHAPES["train_4k"]
+    plan = plan_gpu(model, shape, desc)
+    assert rec["plan"]["layout"] == plan.local_layout
+    assert rec["memory"]["argument_bytes"] == _shard_bytes(
+        model, shape, plan, desc)
+    assert rec["memory"]["peak_per_device"] >= rec["memory"][
+        "argument_bytes"]
+    # FLOPs per GPU against the useful FLOPs of one GPU's share: remat runs
+    # the forward twice (4/3 of 6ND) and the chunked CE recomputes its
+    # logits; nothing runs three times
+    useful = model.step_flops(shape) / desc.total_chips
+    assert 4 / 3 * 0.97 * useful <= rec["cost"]["flops"] <= 2.5 * useful
+    assert rec["cost"]["attention_flops"] > 0
+    coll = rec["collectives"]
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+    assert coll.get("all-reduce", 0) + coll.get("reduce-scatter", 0) > 0
+    if plan.moe_impl.startswith("ep_a2a"):
+        assert coll["all-to-all"] > 0
+    if plan.seq_axes or plan.fsdp_axes:
+        assert coll["all-gather"] > 0
+
+
+def test_pipeline_cell_at_fake_world():
+    """``force_global="model"`` on two nodes: the GPipe step over ``pod``,
+    its activations crossing as point-to-point collective-permutes."""
+    cfg = dataclasses.replace(get_config("gemma-2b").reduced(), n_layers=4)
+    rec = dryrun.run_cell("gemma-2b", "train_4k", True, out_dir=None,
+                          cfg=cfg, force_global="model")
+    assert rec["status"] == "ok", rec
+    assert rec["plan"]["pipeline_stages"] == 2
+    assert rec["collectives"]["collective-permute"] > 0
+
+
+def test_tensor_parallel_cell_is_not_ported():
+    rec = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None)
+    assert rec["status"] == "not_ported"
+    assert rec["plan"]["tp_axes"] == ("model",)
+    assert "tensor-parallel" in rec["reason"]
+    assert "[NOT PORTED]" in dryrun.line(rec)
+
+
+def test_inapplicable_cell_is_skipped():
+    rec = dryrun.run_cell("gemma-2b", "long_500k", False, out_dir=None)
+    assert rec["status"] == "skipped"

@@ -303,3 +303,101 @@ def test_cluster_and_membership_fingerprints_equal_the_jax_digests():
             assert membership_fingerprint(c) == jmembership_fingerprint(jc)
             seen.add(membership_fingerprint(c))
         assert len(seen) == 2                 # a node away is another key
+
+
+# the multi-GPU layer with jax, repro and msgpack refused: the expert
+# all-to-all, the sharded step and the pipeline on two gloo ranks, then a
+# dry-run cell on the fake process group.  A file, so that the spawned
+# ranks can import its worker (and refuse the same imports)
+_MULTI_WITHOUT_JAX = """
+import logging, sys, tempfile
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"):
+            raise ImportError(f"refused: {name}")
+
+
+sys.meta_path.insert(0, Refuse())
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+
+
+def bad():
+    return sorted(n for n in sys.modules
+                  if n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+
+
+def worker(rank, path):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import build_model, moe_ep
+    from repro_torch.sharding import MeshDesc, ShardingPlan, ctx, pipeline
+    from repro_torch.sharding import specs, spmd
+    from repro_torch.training import optimizer as optim
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{path}",
+                            rank=rank, world_size=2)
+    mesh = make_smoke_mesh((1, 2), ("data", "model"), device_type="cpu")
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1)).bfloat16()
+    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    with ctx.plan_specs(specs.Spec(None, "model", None), None, mesh=mesh,
+                        ep_axis="model"):
+        y = moe_ep.moe_ep_a2a(cfg, p, x[:, 4 * rank:4 * rank + 4])
+    plan = ShardingPlan(arch="t", shape="t", mesh=MeshDesc(
+        ("data", "model"), (1, 2)), global_mode="data",
+        local_layout="dp_sp_fsdp_ep", batch_axes=("data",),
+        seq_axes=("model",), tp_axes=(), fsdp_axes=("data", "model"),
+        moe_impl="ep_a2a")
+    sp = specs.param_shardings(mesh, params, plan)
+    tok = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator()
+                        .manual_seed(2), dtype=torch.int32)
+    step = spmd.make_sharded_train_step(model, optim.OptConfig(), plan, mesh)
+    _, _, m = step(sp, optim.init(sp), {"tokens": tok, "targets": tok})
+    gcfg = get_config("gemma-2b").reduced()
+    gparams = build_model(gcfg).init(torch.Generator().manual_seed(0),
+                                     device="cpu")
+    pmesh = make_smoke_mesh((2,), ("pod",), device_type="cpu")
+    staged = pipeline.stage_param_shardings(
+        pmesh, pipeline.stage_params(gcfg, gparams, 2))
+    h = pipeline.pipeline_hidden(gcfg, staged, tok, mesh=pmesh, n_stages=2,
+                                 microbatches=2)
+    if rank == 0:
+        print("RANKS", tuple(y.shape), bool(torch.isfinite(m["loss"])),
+              tuple(h.shape), "BAD", bad(), flush=True)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(worker, args=(tempfile.mktemp(),), nprocs=2)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    ok = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
+                         cfg=get_config("gemma-2b").reduced())
+    tp = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None)
+    print("DRYRUN", ok["status"], tp["status"], "BAD", bad())
+"""
+
+
+def test_multi_gpu_layer_runs_where_jax_and_repro_cannot_import(tmp_path):
+    """``moe_ep``'s all-to-all, the sharded step and the pipeline on gloo
+    ranks, and the dry-run on the fake process group, with jax, ``repro``
+    and ``msgpack`` refused at import in every process."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    script = tmp_path / "multi_without_jax.py"
+    script.write_text(_MULTI_WITHOUT_JAX)
+    out = subprocess.run([sys.executable, str(script)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=150)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "RANKS (2, 4, 64) True (2, 16, 64) BAD []" in out.stdout, \
+        out.stdout
+    assert "DRYRUN ok not_ported BAD []" in out.stdout, out.stdout

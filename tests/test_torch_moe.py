@@ -229,9 +229,10 @@ def test_moe_ep_matches_jax_and_the_dense_oracle(pair, case):
 
 def test_moe_apply_dispatch(pair, monkeypatch):
     """"dense" is the oracle, "ep_a2a" the grouped step and "ep_a2a_q8" the
-    grouped step with its all-to-alls' payload in int8; both grouped
-    lowerings across several processes, and unknown lowerings, are
-    refused."""
+    grouped step with its all-to-alls' payload in int8, in this process
+    when no mesh is published and across the EP axis's ranks
+    (``moe_ep._ep_step``, tests/test_torch_distributed.py) when one is;
+    unknown lowerings are refused."""
     cfg, _, _, _, _, _ = pair
     p, _ = _layer0(pair)
     x, _ = _x((2, 5, cfg.d_model), 4)
@@ -242,10 +243,17 @@ def test_moe_apply_dispatch(pair, monkeypatch):
                        moe_ep.moe_ep_a2a(cfg, p, x, a2a_dtype="int8"))
     with pytest.raises(ValueError, match="moe impl"):
         L.moe_apply(cfg, p, x, impl="sparse")
-    monkeypatch.setattr(moe_ep, "_world_size", lambda: 2)
-    for impl in ("ep_a2a", "ep_a2a_q8"):
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-            L.moe_apply(cfg, p, x, impl=impl)
+    from repro_torch.sharding import ctx as port_ctx
+    calls = []
+    monkeypatch.setattr(moe_ep, "_ep_step", lambda cfg_, p_, x_, mesh, ep,
+                        cf, a2a: calls.append((mesh, ep, cf, a2a)) or x_)
+    mesh = object()
+    with port_ctx.plan_specs(None, None, mesh=mesh, ep_axis="model"):
+        for impl in ("ep_a2a", "ep_a2a_q8"):
+            assert L.moe_apply(cfg, p, x, impl=impl) is x
+    cf = cfg.moe.capacity_factor
+    assert calls == [(mesh, "model", cf, "bfloat16"),
+                     (mesh, "model", cf, "int8")]
 
 
 # --------------------------------------------------------------------------
