@@ -172,10 +172,29 @@ each of which exits non-zero when it fails:
    times of phase 5: gemma-2b's two world-1 cells' predicted peak beside
    the measured one, and ``train_4k`` of every arch on both GPU meshes,
    one line a cell beside the planner's predicted resident GiB and
-   collective ms.
+   collective ms;
+8. (run after the multi-GPU phase) tensor-parallel serving: the decode
+   kernel at each of 8 shares of a 128 x 32768 cache (each share's
+   ``k_offset``, its rows' log-sum-exp), the shares merged by
+   ``decode_attention.merge``, against the kernel on the whole cache and
+   ``ref.decode_attention_naive`` at the bf16 ``TOL`` and each (sequence,
+   head) row within 1e-2 by relative norm (``TP_ROW_RTOL``), with gemma-2b's
+   heads and with gemma3-1b's at its window of 512; one share at full
+   lengths and the merge timed beside their bounds; gemma-2b at full width
+   and depth through ``spmd.make_sharded_prefill`` and
+   ``make_sharded_decode`` under ``dp_tp`` at world 1 over NCCL (B=16 x
+   S=32768 of cache, a 1024-token prompt, 8 decode steps): logits equal
+   the unsharded steps', exactly 18 flash calls and 18 decode calls a
+   step, step ms, busy share and peak beside the dry-run's of the same
+   cell; then world 2 on the one card (two processes over gloo, full
+   width, 2 layers), where gemma's one KV head puts the cache's sequence
+   over ``model``: logits within 1e-1 of the unsharded steps', 16 merges.
+   The dry-run's serving cells (``decode_32k`` of every arch on
+   ``GPU_NODE``, mistral-large-123b's ``prefill_32k``) start after it and
+   must trace ``ok``.
 
-The last two lines are the ``{"kernels": [...]}`` record (five kernels)
-and
+The last two lines are the ``{"kernels": [...]}`` record (five kernels,
+and the merge's entry point) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2634,6 +2653,17 @@ DRYRUN_SPLIT = (("mistral-large-123b", "mamba2-780m", "hymba-1.5b", "gemma-2b",
                  "whisper-tiny", "gemma3-1b"),
                 ("qwen3-moe-30b-a3b", "mixtral-8x7b", "llama-3.2-vision-11b",
                  "minicpm-2b"))
+# the dry-run's serving cells on GPU_NODE, in two host processes:
+# decode_32k of every arch (tensor-parallel in every plan) and
+# mistral-large-123b's prefill_32k (``dp_tp``)
+DRYRUN_SERVE_SPLIT = (
+    (("mistral-large-123b", "decode_32k"), ("gemma-2b", "decode_32k"),
+     ("gemma3-1b", "decode_32k"), ("whisper-tiny", "decode_32k"),
+     ("llama-3.2-vision-11b", "decode_32k")),
+    (("mistral-large-123b", "prefill_32k"), ("qwen3-moe-30b-a3b",
+                                             "decode_32k"),
+     ("mixtral-8x7b", "decode_32k"), ("minicpm-2b", "decode_32k"),
+     ("mamba2-780m", "decode_32k"), ("hymba-1.5b", "decode_32k")))
 
 
 def world_one_plan(layout: str, moe_impl: str = "dense") -> ShardingPlan:
@@ -2761,6 +2791,35 @@ for layout, axes in {layouts}:
     print(json.dumps(dict(layout=layout, **rec)), flush=True)
 """
 
+_DRYRUN_TP_WORLD_ONE = """
+import json, logging
+logging.getLogger("torch.distributed.tensor").setLevel(40)
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.models import ShapeConfig, build_model
+from repro_torch.sharding import MeshDesc, ShardingPlan
+from repro_torch.kernels import ops
+ops.set_backend("blocked")
+model = build_model(get_config("gemma-2b"))
+shape = ShapeConfig("decode_tp", {s}, {b}, "decode")
+desc = MeshDesc(("data", "model"), (1, 1))
+plan = ShardingPlan(arch="smoke", shape="serve", mesh=desc,
+                    global_mode="data", local_layout="dp_tp",
+                    batch_axes=("data",), tp_axes=("model",))
+with dryrun.fake_world(desc) as mesh:
+    rec = dryrun.trace_cell(model, shape, plan, mesh)
+print(json.dumps(rec), flush=True)
+"""
+
+_DRYRUN_SERVE = """
+import json, logging
+logging.getLogger("torch.distributed.tensor").setLevel(40)
+from repro_torch.launch import dryrun
+for arch, shape in {cells!r}:
+    rec = dryrun.run_cell(arch, shape, False, out_dir={out!r})
+    print(json.dumps(rec, default=list), flush=True)
+"""
+
 _DRYRUN_CELLS = """
 import json, logging
 logging.getLogger("torch.distributed.tensor._redistribute").setLevel(40)
@@ -2783,11 +2842,26 @@ def start_dryruns() -> dict:
     out = str(Path(__file__).resolve().parent / "artifacts" / "dryrun_gpu")
     return {"world_one": _dryrun_proc(_DRYRUN_WORLD_ONE.format(
                 t=TRAIN_T, b=TRAIN_B, layouts=layouts)),
+
             **{f"cells_{m}_{i}": _dryrun_proc(_DRYRUN_CELLS.format(
                 archs=archs, shape=DRYRUN_SHAPE, multi=m, out=out))
                for m in (False, True)
                for i, archs in enumerate(DRYRUN_SPLIT)},
             "t0": time.perf_counter()}
+
+
+def start_serving_dryruns() -> dict:
+    """The dry-run's serving processes: gemma-2b's world-1 ``dp_tp`` decode
+    cell of ``tp_world_one`` (B x S = ``TP_B`` x ``TP_S``) and the cells of
+    ``DRYRUN_SERVE_SPLIT``.  Started after the tensor-parallel phase, beside
+    the device-timed kernel phase, so that they load the host neither
+    beside the training dry-runs nor beside host-bound steps."""
+    out = str(Path(__file__).resolve().parent / "artifacts" / "dryrun_gpu")
+    return {"tp_world_one": _dryrun_proc(_DRYRUN_TP_WORLD_ONE.format(
+                s=TP_S, b=TP_B)),
+            **{f"serve_{i}": _dryrun_proc(_DRYRUN_SERVE.format(
+                cells=cells, out=out))
+               for i, cells in enumerate(DRYRUN_SERVE_SPLIT)}}
 
 
 def stop_dryruns(procs: dict) -> None:
@@ -3092,12 +3166,50 @@ def check_context_parallel_flash(smi: str) -> None:
                 f"bound {bound:.5f} ms ({by}) [{smi}]")
 
 
-def dryrun_lines(procs: dict, world_one_runs: dict, smi: str) -> None:
-    """The dry-run's records: gemma-2b's two world-1 cells' predicted peak
-    beside the measured one (a gap above 20% is logged, not failed), then
-    one line per ``DRYRUN_SHAPE`` cell on each GPU mesh beside the
-    planner's predicted resident GiB and collective ms."""
+def _cell_line(rec: dict) -> str:
+    """A dry-run cell's line: per-GPU peak and the planner's resident GiB,
+    FLOPs, collective bytes by kind and the planner's collective ms."""
+    if rec["status"] != "ok":
+        return (f"dry-run {rec['arch']:22s} {rec['shape']} {rec['mesh']} "
+                f"{rec['status']}: {rec.get('reason', '')}")
+    pred = rec["plan"]["predicted"]
+    coll = rec["collectives"]
+    return (f"dry-run {rec['arch']:22s} {rec['shape']} {rec['mesh']}"
+            f" {rec['plan']['layout']:16s} "
+            f"{rec['memory']['peak_per_device'] / 2**30:.2f} GiB/GPU"
+            f" (planner {pred['resident'] / 2**30:.2f}), argument "
+            f"{rec['memory']['argument_bytes'] / 1e9:.2f} GB, "
+            f"{rec['cost']['flops']:.3e} FLOPs, collectives GB "
+            + " ".join(f"{k} {v / 1e9:.3f}" for k, v in coll.items())
+            + f" (planner {1e3 * pred['collective']:.1f} ms), "
+            f"traced in {rec['seconds']['trace']:.1f} s")
+
+
+def dryrun_lines(procs: dict, world_one_runs: dict, tp_one: dict,
+                 smi: str) -> None:
+    """The dry-run's records: gemma-2b's two world-1 training cells' and
+    its world-1 ``dp_tp`` decode cell's predicted peak beside the measured
+    one (a gap above 20% is logged, not failed), then one line per
+    ``DRYRUN_SHAPE`` cell on each GPU mesh and per serving cell beside the
+    planner's predicted resident GiB and collective ms; a serving cell must
+    trace ``ok``."""
     t0 = time.perf_counter()
+    for rec in _finish(procs["tp_world_one"], "tp world-1 cell", 600):
+        got = tp_one["peak_gib"]
+        pred = rec["memory"]["peak_per_device"] / 2**30
+        gap = (pred - got) / got
+        log(f"dry-run gemma-2b dp_tp decode at world 1 (B={TP_B} S={TP_S}):"
+            f" peak_per_device {pred:.2f} GiB against max_memory_allocated "
+            f"{got:.2f} GiB measured over the decode steps ({gap:+.1%}"
+            f"{', above 20%' if abs(gap) > 0.2 else ''}); argument "
+            f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB, "
+            f"{rec['cost']['flops']:.3e} FLOPs [{smi}]")
+    for i in range(len(DRYRUN_SERVE_SPLIT)):
+        for rec in _finish(procs[f"serve_{i}"], "serving cells", 900):
+            log(_cell_line(rec))
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry-run {rec['arch']} {rec['shape']}"
+                                     f": {rec['status']}")
     for rec in _finish(procs["world_one"], "world-1 cells", 600):
         got = world_one_runs[rec["layout"]]["peak_gib"]
         pred = rec["memory"]["peak_per_device"] / 2**30
@@ -3116,21 +3228,7 @@ def dryrun_lines(procs: dict, world_one_runs: dict, smi: str) -> None:
         if len(recs) != len(ARCH_IDS):
             raise AssertionError(f"dry-run gave {len(recs)} cells")
         for rec in recs:
-            if rec["status"] == "ok":
-                pred = rec["plan"]["predicted"]
-                coll = rec["collectives"]
-                log(f"dry-run {rec['arch']:22s} {rec['shape']} {rec['mesh']}"
-                    f" {rec['plan']['layout']:16s} "
-                    f"{rec['memory']['peak_per_device'] / 2**30:.2f} GiB/GPU"
-                    f" (planner {pred['resident'] / 2**30:.2f}), "
-                    f"{rec['cost']['flops']:.3e} FLOPs, collectives GB "
-                    + " ".join(f"{k} {v / 1e9:.3f}" for k, v in coll.items())
-                    + f" (planner {1e3 * pred['collective']:.1f} ms), "
-                    f"traced in {rec['seconds']['trace']:.1f} s")
-            else:
-                log(f"dry-run {rec['arch']:22s} {rec['shape']} "
-                    f"{rec['mesh']} {rec['status']}: "
-                    f"{rec.get('reason', '')}")
+            log(_cell_line(rec))
     log(f"dry-run: its processes done {time.perf_counter() - procs['t0']:.1f}"
         f" s after their start, {time.perf_counter() - t0:.1f} s waited "
         "for them here")
@@ -3158,6 +3256,387 @@ def multi_gpu_phase(smi: str) -> dict:
     check_context_parallel_flash(smi)
     log(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s")
     return runs
+
+
+# --------------------------------------------------------------------------
+# Tensor-parallel serving
+# --------------------------------------------------------------------------
+
+# the decode kernel at one rank's share of decode_32k: B sequences over a
+# cache of S rows cut into TP_SHARES shares, each a rank's under an 8-way
+# sequence split, with gemma-2b's heads (8 over 1, head_dim 256) and with
+# gemma3-1b's (4 over 1) at its window of 512
+TP_SHARES, TP_DECODE = 8, (128, 32768)
+TP_HEADS = {"gemma-2b": ((HQ, HKV, HD), None),
+            "gemma3-1b": ((4, 1, 256), 512)}
+# gemma-2b at full width and depth through the sharded serving steps at
+# world 1: a decode cache of TP_B x TP_S rows (9.66 GB, the bytes of one
+# GPU's share of decode_32k), a prompt of TP_PROMPT tokens prefilled into
+# it, TP_STEPS decode steps from lengths TP_S - TP_STEPS
+TP_B, TP_S, TP_PROMPT, TP_STEPS = 16, 32768, 1024, 8
+# the same at world 2 on the one card (two processes over gloo): full width,
+# TP_W2_LAYERS layers, TP_W2_B sequences; gemma's one KV head puts the
+# cache's sequence over "model", so the shares' results are merged
+TP_W2_LAYERS, TP_W2_B = 2, 4
+# logits of the sharded steps against the unsharded ones (world 1 runs the
+# same arithmetic; world 2 adds bf16 partial sums and the merge), and the
+# near-tie rule for greedy tokens (tests/test_torch_moe.py's)
+TP_LOGITS_TOL = {1: TOL[torch.bfloat16], 2: 1e-1}
+# merged shares against the whole-cache kernel and the plain versions, per
+# (sequence, head) row: |got - want| / |want| over the row's D values.  The
+# element-wise TOL is as large as a long row's values (std about
+# sqrt(e / length)); per row, the plain merge of bf16 shares lies within
+# this limit of the exact output, while a share's rows offset by one key or
+# a share left out put rows outside it
+# (tests/test_torch_decode_split.py::test_row_limit_separates_the_merge_from_its_faults)
+TP_ROW_RTOL = 1e-2
+TP_NEAR_TIE = 5e-2
+
+
+def tp_plan(mesh_shape) -> ShardingPlan:
+    """``dp_tp`` on a ("data", "model") mesh of ``mesh_shape``."""
+    return ShardingPlan(arch="smoke", shape="serve",
+                        mesh=MeshDesc(("data", "model"), tuple(mesh_shape)),
+                        global_mode="data", local_layout="dp_tp",
+                        batch_axes=("data",), tp_axes=("model",))
+
+
+def _tp_counts() -> dict:
+    return {"flash_attention": fa.launches, "decode_attention": da.launches,
+            "decode_attention_merge": da.merge_launches}
+
+
+def _tp_zero() -> None:
+    fa.launches = da.launches = da.merge_launches = 0
+
+
+def _row_check(name, got, want, rtol) -> float:
+    """Each (sequence, head) row of ``got`` (B, 1, H, D) within ``rtol`` of
+    ``want``'s by relative norm; returns the worst row's."""
+    torch.cuda.synchronize()
+    g = got.float().flatten(0, -2)
+    w = want.float().flatten(0, -2)
+    rel = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+    worst = rel.max().item()
+    if not worst <= rtol:
+        raise AssertionError(f"{name}: a row's |err|/|want| {worst:.3e} over "
+                             f"{rtol}")
+    return worst
+
+
+def _shares(q, k, v, lens, window):
+    """Every share of the cache through the kernel with its ``k_offset``
+    and the LSE output; their (outputs, LSEs) stacked as a gather over the
+    ranks gives them."""
+    m = k.shape[1] // TP_SHARES
+    outs, lses = [], []
+    for r in range(TP_SHARES):
+        o, lse = da.decode_attention(q, k[:, r * m:(r + 1) * m],
+                                     v[:, r * m:(r + 1) * m], lens,
+                                     window=window, k_offset=r * m,
+                                     return_lse=True)
+        outs.append(o[:, 0])
+        lses.append(lse)
+    return torch.stack(outs, 2), torch.stack(lses, 2)
+
+
+def check_decode_shares(smi: str) -> dict:
+    """The decode kernel at each of ``TP_SHARES`` shares of a
+    ``TP_DECODE`` cache (random lengths from a numpy seed), the shares
+    merged by ``decode_attention.merge``, against the kernel on the whole
+    cache and ``ref.decode_attention_naive`` at the bf16 ``TOL``, for each
+    of ``TP_HEADS``; then one share's call at full lengths and the merge
+    timed beside their bounds.  Returns the merge's record (its kernel
+    line) and the share's."""
+    b, s = TP_DECODE
+    m = s // TP_SHARES
+    tol = TOL[torch.bfloat16]
+    out: dict = {}
+    for seed, (aid, ((hq, hkv, d), window)) in enumerate(TP_HEADS.items()):
+        gen = torch.Generator(device="cuda").manual_seed(2500 + seed)
+        q = _randn((b, 1, hq, d), torch.bfloat16, gen)
+        k = _randn((b, s, hkv, d), torch.bfloat16, gen)
+        v = _randn((b, s, hkv, d), torch.bfloat16, gen)
+        lens = torch.from_numpy(np.random.default_rng(2500 + seed).integers(
+            1, s + 1, b).astype(np.int32)).cuda()
+        outs, lses = _shares(q, k, v, lens, window)
+        empty = float((lses <= ref.NEG_INF / 2).float().mean())
+        merged = da.merge(outs, lses)
+        whole = da.decode_attention(q, k, v, lens, window=window)
+        naive = ref.decode_attention_naive(q, k, v, lens, window=window)
+        plain = ref.decode_merge(outs, lses)
+        pairs = ((f"{aid} shares merged vs whole kernel", whole),
+                 (f"{aid} shares merged vs plain", naive),
+                 (f"{aid} merge vs its plain version", plain))
+        err = max(_check(tag, merged, want, tol) for tag, want in pairs)
+        rows = [_row_check(tag, merged, want, TP_ROW_RTOL)
+                for tag, want in pairs]
+        del naive
+        log(f"decode at {TP_SHARES} shares of {m} rows, {aid}'s heads "
+            f"({hq}/{hkv}, D={d}) window {window}, B={b}, random lengths: "
+            f"merged max|err| {err:.3e} against the whole-cache kernel, "
+            f"ref.decode_attention_naive and ref.decode_merge (TOL {tol}); "
+            f"worst row |err|/|want| {rows[0]:.3e}, {rows[1]:.3e}, "
+            f"{rows[2]:.3e} (limit {TP_ROW_RTOL}); {empty:.1%} of the (row, "
+            f"share) pairs had no valid key")
+        out[aid] = err
+        if aid != "gemma-2b":
+            continue
+        # one share's call at full lengths: the last share, every row valid
+        full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+        off = (TP_SHARES - 1) * m
+        ks, vs = k[:, off:], v[:, off:]
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        nbytes = 2.0 * (ks.numel() + vs.numel() + 2 * q.numel()) + 4 * hq * b
+        share_b = _bound(4.0 * b * hq * d * m, nbytes)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ks, vs))
+        share = _times(lambda: da.decode_attention(
+            q, ks, vs, full, k_offset=off, return_lse=True),
+            lambda: ref.decode_attention_naive(q, ks, vs, full, k_offset=off,
+                                               return_lse=True),
+            lambda: _sdpa(qt, kt, vt, None), flush)
+        share.update(bound_ms=share_b[0], bound_by=share_b[1])
+        whole_b = _bound(4.0 * b * hq * d * s, 2.0 * (k.numel() + v.numel()))
+        whole_ms = time_ms(lambda: da.decode_attention(q, k, v, full), flush)
+        outs, lses = _shares(q, k, v, full, None)
+        mb = _bound(3.0 * outs.numel(), 2.0 * outs.numel() + 4.0 * lses.numel()
+                    + 2.0 * q.numel())
+        merge = dict(ms=time_ms(lambda: da.merge(outs, lses), None),
+                     plain_ms=time_ms(lambda: ref.decode_merge(outs, lses),
+                                      None),
+                     library_ms=None, bound_ms=mb[0], bound_by=mb[1])
+        log(_time_line(f"decode at one share (b, s, hq, hkv, d) = ({b}, {m},"
+                       f" {hq}, {hkv}, {d}), k_offset {off}, every row "
+                       f"valid, with the LSE output", share, smi)
+            + f"; the whole {s}-row cache {whole_ms:.4f} ms (bound "
+            f"{whole_b[0]:.5f} ms, {whole_b[1]})")
+        log(f"time merge of {TP_SHARES} shares (B={b}, Hq={hq}, D={d}): "
+            f"kernel {merge['ms']:.4f} ms, plain {merge['plain_ms']:.4f} ms,"
+            f" library none, bound {mb[0]:.5f} ms ({mb[1]}) [{smi}]")
+        out.update(share=share, merge=merge, whole_ms=whole_ms)
+        del q, k, v, ks, vs, qt, kt, vt, flush
+        _free()
+    return out
+
+
+def _tp_cache(model, prompt_cache: dict, b: int, seed: int) -> dict:
+    """A decode cache of ``TP_S`` rows: the prompt's k/v in its first rows,
+    seeded N(0, 1) bf16 after them (the rows a longer context would have
+    written)."""
+    cache = model.init_cache(b, TP_S, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name in ("k", "v"):
+        cache[name].normal_(generator=gen)
+        t = prompt_cache[name].shape[2]
+        cache[name][:, :, :t] = prompt_cache[name]
+    return cache
+
+
+def _greedy_check(tag: str, got, want, tol: float) -> float:
+    """``got`` logits against ``want`` at ``tol``; the greedy tokens equal
+    save where ``want``'s top two lie within ``TP_NEAR_TIE``."""
+    err = _check(tag, got, want, tol)
+    g, w = got.float().argmax(-1), want.float().argmax(-1)
+    top2 = want.float().topk(2, -1).values
+    tie = (top2[..., 0] - top2[..., 1]) < TP_NEAR_TIE
+    if bool(((g != w) & ~tie).any()):
+        raise AssertionError(f"{tag}: greedy tokens part away from a near "
+                             "tie")
+    return err
+
+
+def _tp_serve(model, params, mesh, mesh_shape, b: int, seed: int,
+              logits_of) -> dict:
+    """The unsharded ``apply_prefill`` of a ``TP_PROMPT``-token prompt, its
+    cache in a ``_tp_cache`` and ``TP_STEPS`` ``apply_decode`` steps; then
+    the same through ``make_sharded_prefill``/``make_sharded_decode`` under
+    ``dp_tp`` on ``mesh``, fed the unsharded run's greedy tokens, every
+    kernel counter set to 0 just before and read just after (the main
+    path).  ``logits_of``: a sharded step's logits whole.  Returns the
+    errors, the sharded decode steps' ms, launches and peak."""
+    from repro_torch.sharding import specs, spmd
+    cfg = model.cfg
+    plan = tp_plan(mesh_shape)
+    world = mesh_shape[0] * mesh_shape[1]
+    tol = TP_LOGITS_TOL[world]
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab, (b, TP_PROMPT)).astype(np.int32)).cuda(),
+             "lengths": torch.full((b,), TP_PROMPT, dtype=torch.int32,
+                                   device="cuda")}
+    start = TP_S - TP_STEPS
+    with torch.no_grad():
+        lu, cu = model.apply_prefill(params, batch)
+        cache = _tp_cache(model, cu, b, seed)
+        want, toks = [lu], [lu.argmax(-1).to(torch.int32)]
+        plain_times = []
+        for i in range(TP_STEPS):
+            lens = torch.full((b,), start + i + 1, dtype=torch.int32,
+                              device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.apply_decode(params, cache,
+                                           {"tokens": toks[-1],
+                                            "lengths": lens})
+            torch.cuda.synchronize()
+            plain_times.append(1e3 * (time.perf_counter() - t0))
+            want.append(lg)
+            toks.append(lg.argmax(-1).to(torch.int32))
+    del cache
+    _free()
+    sp = specs.param_shardings(mesh, params, plan)
+    prefill = spmd.make_sharded_prefill(model, plan, mesh)
+    decode = spmd.make_sharded_decode(model, plan, mesh)
+    torch.cuda.synchronize()
+    _tp_zero()
+    logits, cs = prefill(sp, batch)
+    errs = [_greedy_check("tp prefill logits", logits_of(logits), lu, tol)]
+    local = {k: v.to_local() for k, v in cs.items()}
+    if world == 1:
+        errs.append(max(_check(f"tp prefill cache {k}", local[k], cu[k],
+                               TOL[torch.bfloat16]) for k in local))
+    whole = _tp_cache(model, cu, b, seed)
+    dc = specs.cache_shardings(mesh, whole, plan)
+    del whole, local, cs
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TP_STEPS):
+        lens = torch.full((b,), start + i + 1, dtype=torch.int32,
+                          device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, dc = decode(sp, dc, {"tokens": toks[i], "lengths": lens})
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        errs.append(_greedy_check(f"tp decode step {i} logits",
+                                  logits_of(logits), want[i + 1], tol))
+    launches = _tp_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    last = {"tokens": toks[TP_STEPS - 1],
+            "lengths": torch.full((b,), TP_S, dtype=torch.int32,
+                                  device="cuda")}
+    return dict(errs=errs, times=times, plain_times=plain_times,
+                launches=launches, peak_gib=peak,
+                step=lambda: decode(sp, dc, last), tol=tol)
+
+
+def tp_world_one(mesh, smi: str) -> dict:
+    """gemma-2b at full width and depth through the sharded serving steps
+    over NCCL at world 1 (``_tp_serve``): exactly 18 flash calls for the
+    prefill and 18 decode calls a step (the cache split by its one KV head
+    over a ``model`` of 1: no merge), the decode step's ms, busy share and
+    peak."""
+    cfg = get_config("gemma-2b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.bfloat16)
+    r = _tp_serve(model, params, mesh, (1, 1), TP_B, 2600,
+                  lambda x: x.to_local())
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * TP_STEPS,
+            "decode_attention_merge": 0}
+    if r["launches"] != want:
+        raise AssertionError(f"tp world 1 launches {r['launches']}, "
+                             f"expected {want}")
+    p = _profile(r["step"], 1)
+    busy = "not measured" if p is None else \
+        f"{p['device_ms'] / p['wall_ms']:.1%}"
+    log(f"gemma-2b dp_tp at world 1 over NCCL, B={TP_B} x S={TP_S} cache "
+        f"(prompt {TP_PROMPT}, {TP_STEPS} decode steps from length "
+        f"{TP_S - TP_STEPS}): sharded prefill and decode against the "
+        f"unsharded steps max|err| {max(r['errs']):.3e} (tol {r['tol']}, "
+        f"greedy tokens equal save near ties); decode step median "
+        f"{statistics.median(r['times']):.2f} ms (steps "
+        f"{[round(t, 2) for t in r['times']]}; the unsharded step "
+        f"{statistics.median(r['plain_times']):.2f} ms), busy {busy}, peak "
+        f"{r['peak_gib']:.2f} GiB; launches {r['launches']} [{smi}]")
+    r.pop("step")
+    del params, model
+    _free()
+    return r
+
+
+def tp_world_two_worker(rank: int, d: str) -> None:
+    """One of two ranks on the one card over gloo: gemma-2b at full width
+    and ``TP_W2_LAYERS`` layers through ``_tp_serve`` on a (1, 2) mesh;
+    rank 0 writes its errors, times and launches to ``d``."""
+    import logging
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    torch.cuda.set_device(0)
+    _build.build_all(("flash_attention", "decode_attention"))
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_smoke_mesh((1, 2), ("data", "model"), device_type="cuda")
+        cfg = dataclasses.replace(get_config("gemma-2b"),
+                                  n_layers=TP_W2_LAYERS)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda", dtype=torch.bfloat16)
+
+        def whole(x):
+            # the vocab split over "model": gathered along it by c10d (the
+            # functional all-gather DTensor uses crashes under gloo on CUDA)
+            loc = x.to_local().contiguous()
+            out = loc.new_empty((2, *loc.shape))
+            dist.all_gather_into_tensor(out, loc[None])
+            return torch.cat(tuple(out), -1)
+
+        r = _tp_serve(model, params, mesh, (1, 2), TP_W2_B, 2700, whole)
+        r.pop("step")
+        if rank == 0:
+            with open(f"{d}/out.json", "w") as f:
+                json.dump(r, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_world_two(smi: str) -> dict:
+    """``tp_world_two_worker`` on two processes: the sequence-split path
+    with the real kernels across ranks (k_offset, LSE, the merge), against
+    the unsharded steps.  A rank's failure fails the phase."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(tp_world_two_worker, args=(d,), nprocs=2,
+                           start_method="spawn")
+        with open(f"{d}/out.json") as f:
+            r = json.load(f)
+    want = {"flash_attention": TP_W2_LAYERS,
+            "decode_attention": TP_W2_LAYERS * TP_STEPS,
+            "decode_attention_merge": TP_W2_LAYERS * TP_STEPS}
+    if r["launches"] != want:
+        raise AssertionError(f"tp world 2 launches {r['launches']}, "
+                             f"expected {want}")
+    log(f"gemma-2b ({TP_W2_LAYERS} layers) dp_tp at world 2 on one card "
+        f"over gloo, B={TP_W2_B} x S={TP_S} cache split along the sequence: "
+        f"sharded against unsharded max|err| {max(r['errs']):.3e} (tol "
+        f"{r['tol']}, greedy tokens equal save near ties); rank 0's decode "
+        f"steps {[round(t, 2) for t in r['times']]} ms (gloo through the "
+        f"host; unsharded {statistics.median(r['plain_times']):.2f} ms), "
+        f"launches {r['launches']}, {time.perf_counter() - t0:.1f} s "
+        f"[{smi}]")
+    return r
+
+
+def tp_serving_phase(smi: str) -> dict:
+    """The tensor-parallel serving slice: the decode kernel at the shares
+    of a sequence-split cache and their merge, gemma-2b through the sharded
+    serving steps at world 1 over NCCL, and at world 2 on the one card over
+    gloo.  Returns the records and launches for the kernels line."""
+    import logging
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    _free()
+    t0 = time.perf_counter()
+    shares = check_decode_shares(smi)
+    with world_one() as mesh:
+        one = tp_world_one(mesh, smi)
+    two = tp_world_two(smi)
+    log(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s")
+    return dict(shares=shares, one=one, two=two)
 
 
 # the tensor-core instantiations, which must not spill (their accumulators
@@ -3309,6 +3788,12 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     # phases (qwen3's sharded steps are held to their in-process runs)
     world_one_runs = multi_gpu_phase(smi)
 
+    # 8. tensor-parallel serving: the decode kernel at a sequence-split
+    # cache's shares and their merge, gemma-2b through the sharded serving
+    # steps at world 1 over NCCL and at world 2 on the card over gloo
+    tp = tp_serving_phase(smi)
+    dryruns.update(start_serving_dryruns())
+
     # 5. times at the main path's shapes
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     records = {}
@@ -3365,7 +3850,7 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     for t in (4, RAGGED_PREFILL[0]):
         time_moe_layer(t, smi)
     # the dry-run's lines, its processes done by now
-    dryrun_lines(dryruns, world_one_runs, smi)
+    dryrun_lines(dryruns, world_one_runs, tp["one"], smi)
     log(f"kernels: {list(_build.KERNELS)}")
 
     source = {
@@ -3396,6 +3881,19 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
             "max_abs_err": worst[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the merge of a sequence-split cache's shares: the decode source's
+    # combine kernel behind its own entry point, on the main path where
+    # ranks hold shares (world 2 on the card; at world 1 the cache splits
+    # by its one KV head and nothing is merged)
+    r = tp["shares"]["merge"]
+    kernels.append({
+        "name": "decode_attention_merge", "route": "cuda",
+        "source": source["decode_attention"][0],
+        "replaces": source["decode_attention"][1],
+        "launches": tp["two"]["launches"]["decode_attention_merge"],
+        "max_abs_err": tp["shares"]["gemma-2b"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -24,6 +24,14 @@
 //     whose every split is empty comes out 0, never NaN;
 //   * n_splits comes from the shapes alone (the wrapper's split_plan), never
 //     from the values in `lengths`, so no host sync is needed;
+//   * a rank's share of a cache split over the sequence (tensor-parallel
+//     serving): `k_offset` is the global position of the share's first row,
+//     and the valid local range is the global one shifted by it and clamped
+//     to [0, S).  The combine can write each row's log-sum-exp (fp32;
+//     NEG_INF for a row with no valid key), and a second entry point,
+//     decode_attention_merge, runs the same combine kernel over the ranks'
+//     (out, lse), each rank one partial with m = lse and l = 1 (l = 0 when
+//     it had no key);
 //   * bf16: K/V tiles stay bf16 in shared memory, two stages filled by
 //     cp.async, so the next tile is in flight while this one is computed.
 //     The G <= 16 queries of the group are the rows of one mma.sync
@@ -44,12 +52,20 @@ constexpr int MR = 16;        // query rows of one mma tile
 
 // Keys [a, b) of split s of ns over the valid range [lo, hi): whole tiles
 // of BK keys counted from lo, split as evenly as floor division allows.
+// The range is the global [max(0, len - window), len) shifted by the
+// share's first position k_offset and clamped to the share's S rows.
 // The wrapper's plain version (ref.decode_attention_split) does the same.
+__device__ __forceinline__ long long clamp_rows(long long x, int S) {
+  return min(max(x, 0LL), (long long)S);
+}
+
 __device__ __forceinline__ void split_range(long long length, int S,
-                                            int window, int s, int ns,
-                                            long long& a, long long& b) {
-  const long long lo = max(0LL, length - (long long)window);
-  const long long hi = min(length, (long long)S);
+                                            int window, long long k_offset,
+                                            int s, int ns, long long& a,
+                                            long long& b) {
+  const long long lo =
+      clamp_rows(max(0LL, length - (long long)window) - k_offset, S);
+  const long long hi = clamp_rows(length - k_offset, S);
   const long long tiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
   a = lo + tiles * s / ns * BK;
   b = min(hi, lo + tiles * (s + 1) / ns * BK);
@@ -72,7 +88,8 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, Partials part,
                  const int* __restrict__ lengths, int S, int Hq, int G,
                  long long q_sb, long long k_sb, long long k_st,
-                 long long v_sb, long long v_st, int window, float scale) {
+                 long long v_sb, long long v_st, int window,
+                 long long k_offset, float scale) {
   extern __shared__ float smem[];
   const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   attn::Smem<D> sm(smem, G);
@@ -83,7 +100,7 @@ decode_split_f32(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
 
   long long ka, kb_;
-  split_range(lengths[b], S, window, s, part.ns, ka, kb_);
+  split_range(lengths[b], S, window, k_offset, s, part.ns, ka, kb_);
   auto valid = [=](int, long long kpos) { return kpos >= ka && kpos < kb_; };
   const float* kb = k + b * k_sb + (long long)hk * D;
   const float* vb = v + b * v_sb + (long long)hk * D;
@@ -123,7 +140,8 @@ decode_split_bf16(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ v, Partials part,
                   const int* __restrict__ lengths, int S, int Hq, int G,
                   long long q_sb, long long k_sb, long long k_st,
-                  long long v_sb, long long v_st, int window, float scale) {
+                  long long v_sb, long long v_st, int window,
+                  long long k_offset, float scale) {
   using bf16 = __nv_bfloat16;
   constexpr int P = DecodeSmem<D>::P, PP = DecodeSmem<D>::PP;
   constexpr int NT8 = D / 8;            // 8-column tiles of the output
@@ -143,7 +161,7 @@ decode_split_bf16(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
 
   long long ka, kb_;
-  split_range(lengths[b], S, window, s, part.ns, ka, kb_);
+  split_range(lengths[b], S, window, k_offset, s, part.ns, ka, kb_);
   const int ntile = (int)((kb_ - ka + BK - 1) / BK);  // 0 when empty
   const bf16* kb = k + b * k_sb + (long long)hk * D + ka * k_st;
   const bf16* vb = v + b * v_sb + (long long)hk * D + ka * v_st;
@@ -294,23 +312,37 @@ decode_split_bf16(const __nv_bfloat16* __restrict__ q,
 
 constexpr int MAX_SPLITS = 256;
 
-template <typename T>
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// One block per (q head, batch) row merges its ns partials.  `acc` (rows,
+// ns, D) in TA; `ml` (rows, ns, 2) running max and sum, or, with
+// `from_lse`, (rows, ns) log-sum-exps of normalised partials (l = 1, or 0
+// for NEG_INF).  Writes the row's output and, where `lse` is given, its
+// log-sum-exp M + log(den) (NEG_INF when every partial is empty).
+template <typename TA, typename T>
 __global__ void __launch_bounds__(attn::NT)
-decode_combine(const float* __restrict__ acc, const float* __restrict__ ml,
-               T* __restrict__ o, int ns, int D) {
+decode_combine(const TA* __restrict__ acc, const float* __restrict__ ml,
+               T* __restrict__ o, float* __restrict__ lse, int ns, int D,
+               bool from_lse) {
   __shared__ float w[MAX_SPLITS];  // e^(m_s - M) of the splits with a key
   __shared__ int live[MAX_SPLITS];  // and their numbers
   __shared__ int n_live;
   __shared__ float inv;
   const long long row = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const float* m = ml + row * ns * 2;
+  const int mstride = from_lse ? 1 : 2;
+  const float* m = ml + row * ns * mstride;
   if (threadIdx.x < 32) {
     // warp 0: M, the weights and the denominator.  A split with a key has
     // l >= 1 (its largest score gives p = 1); an empty one has l = 0 and
     // acc = 0, adds nothing and is left out of the column sums.
     const int lane = threadIdx.x;
     float M = attn::NEG_INF;
-    for (int s = lane; s < ns; s += 32) M = fmaxf(M, m[2 * s]);
+    for (int s = lane; s < ns; s += 32) M = fmaxf(M, m[mstride * s]);
 #pragma unroll
     for (int x = 16; x > 0; x >>= 1)
       M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, x));
@@ -318,11 +350,14 @@ decode_combine(const float* __restrict__ acc, const float* __restrict__ ml,
     int count = 0;
     for (int s0 = 0; s0 < ns; s0 += 32) {
       const int s = s0 + lane;
-      const float ls = s < ns ? m[2 * s + 1] : 0.f;
+      float ls = 0.f;
+      if (s < ns)
+        ls = from_lse ? (m[s] > 0.5f * attn::NEG_INF ? 1.f : 0.f)
+                      : m[2 * s + 1];
       const unsigned has = __ballot_sync(0xffffffffu, ls > 0.f);
       if (ls > 0.f) {
         const int at = count + __popc(has & ((1u << lane) - 1u));
-        w[at] = expf(m[2 * s] - M);
+        w[at] = expf(m[mstride * s] - M);
         live[at] = s;
         den += w[at] * ls;
       }
@@ -334,16 +369,18 @@ decode_combine(const float* __restrict__ acc, const float* __restrict__ ml,
     if (lane == 0) {
       n_live = count;
       inv = 1.f / fmaxf(den, 1e-30f);  // every split empty: the row is 0
+      if (lse != nullptr)
+        lse[row] = count > 0 ? M + logf(den) : attn::NEG_INF;
     }
   }
   __syncthreads();
   const int nl = n_live;
-  const float* a = acc + row * ns * D;
+  const TA* a = acc + row * ns * D;
   for (int c = 2 * threadIdx.x; c < D; c += 2 * attn::NT) {
     float x0 = 0.f, x1 = 0.f;
 #pragma unroll 8
     for (int i = 0; i < nl; ++i) {
-      const float2 p = *reinterpret_cast<const float2*>(a + live[i] * D + c);
+      const float2 p = load2(a + live[i] * D + c);
       x0 += w[i] * p.x;
       x1 += w[i] * p.y;
     }
@@ -354,9 +391,10 @@ decode_combine(const float* __restrict__ acc, const float* __restrict__ ml,
 
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const void* lengths, Partials part, int B, int S, int Hq, int Hkv,
-           long long q_sb, long long k_sb, long long k_st, long long v_sb,
-           long long v_st, int window, float scale, cudaStream_t stream) {
+           float* lse, const void* lengths, Partials part, int B, int S,
+           int Hq, int Hkv, long long q_sb, long long k_sb, long long k_st,
+           long long v_sb, long long v_st, int window, long long k_offset,
+           float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const dim3 grid(part.ns, Hkv, B);
   if constexpr (std::is_same<T, float>::value) {
@@ -367,19 +405,19 @@ int launch(const void* q, const void* k, const void* v, void* o,
     decode_split_f32<D><<<grid, attn::NT, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), part, static_cast<const int*>(lengths),
-        S, Hq, G, q_sb, k_sb, k_st, v_sb, v_st, window, scale);
+        S, Hq, G, q_sb, k_sb, k_st, v_sb, v_st, window, k_offset, scale);
   } else {
     static const cudaError_t attr = attn::allow_smem(decode_split_bf16<D>);
     if (attr != cudaSuccess) return int(attr);
     decode_split_bf16<D><<<grid, attn::NT, DecodeSmem<D>::bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), part, static_cast<const int*>(lengths), S,
-        Hq, G, q_sb, k_sb, k_st, v_sb, v_st, window, scale);
+        Hq, G, q_sb, k_sb, k_st, v_sb, v_st, window, k_offset, scale);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  decode_combine<T><<<dim3(Hq, B), attn::NT, 0, stream>>>(
-      part.acc, part.ml, static_cast<T*>(o), part.ns, D);
+  decode_combine<float, T><<<dim3(Hq, B), attn::NT, 0, stream>>>(
+      part.acc, part.ml, static_cast<T*>(o), lse, part.ns, D, false);
   return int(cudaGetLastError());
 }
 
@@ -387,28 +425,60 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head and
 // feature axes must be dense (stride D and 1), and q's heads too.  `o` is a
-// dense (B,1,Hq,D) tensor; `part_acc` (B,Hq,n_splits,D) and `part_ml`
-// (B,Hq,n_splits,2) are fp32 scratch.  Two launches (split, combine);
-// returns the first non-zero cudaGetLastError() after them.
+// dense (B,1,Hq,D) tensor; `lse`, if not null, a dense (B,Hq) fp32 tensor
+// that receives each row's log-sum-exp; `part_acc` (B,Hq,n_splits,D) and
+// `part_ml` (B,Hq,n_splits,2) are fp32 scratch.  The cache's row 0 is the
+// global position k_offset (0 for a whole cache).  Two launches (split,
+// combine); returns the first non-zero cudaGetLastError() after them.
 extern "C" int decode_attention_fwd(
     int dtype, int D, const void* q, const void* k, const void* v, void* o,
-    const void* lengths, void* part_acc, void* part_ml, int n_splits, int B,
-    int S, int Hq, int Hkv, long long q_sb, long long k_sb, long long k_st,
-    long long v_sb, long long v_st, int window, float scale, void* stream) {
+    void* lse, const void* lengths, void* part_acc, void* part_ml,
+    int n_splits, int B, int S, int Hq, int Hkv, long long q_sb,
+    long long k_sb, long long k_st, long long v_sb, long long v_st,
+    int window, long long k_offset, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || n_splits <= 0 ||
       n_splits > MAX_SPLITS)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Partials part{static_cast<float*>(part_acc),
                       static_cast<float*>(part_ml), n_splits};
+  float* l = static_cast<float*>(lse);
   if (dtype == 0) {
     ATTN_DISPATCH_D(D, return launch<D, float>(
-        q, k, v, o, lengths, part, B, S, Hq, Hkv, q_sb, k_sb, k_st, v_sb,
-        v_st, window, scale, st))
+        q, k, v, o, l, lengths, part, B, S, Hq, Hkv, q_sb, k_sb, k_st, v_sb,
+        v_st, window, k_offset, scale, st))
   } else if (dtype == 1) {
     ATTN_DISPATCH_D(D, return launch<D, __nv_bfloat16>(
-        q, k, v, o, lengths, part, B, S, Hq, Hkv, q_sb, k_sb, k_st, v_sb,
-        v_st, window, scale, st))
+        q, k, v, o, l, lengths, part, B, S, Hq, Hkv, q_sb, k_sb, k_st, v_sb,
+        v_st, window, k_offset, scale, st))
   }
   return int(cudaErrorInvalidValue);
+}
+
+// The merge of R ranks' results over a cache split along the sequence:
+// `parts` (B,Hq,R,D) the ranks' normalised outputs in dtype, `lses`
+// (B,Hq,R) fp32 their log-sum-exps (NEG_INF for a rank with no valid key);
+// `o` (B,1,Hq,D) in dtype and, if not null, `lse` (B,Hq) fp32.  One launch
+// of the combine kernel, each rank one partial.
+extern "C" int decode_attention_merge(int dtype, int D, const void* parts,
+                                      const void* lses, void* o, void* lse,
+                                      int R, int B, int Hq, void* stream) {
+  if (B <= 0 || Hq <= 0 || R <= 0 || R > MAX_SPLITS || D % 2 != 0)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(Hq, B);
+  const float* ml = static_cast<const float*>(lses);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) {
+    decode_combine<float, float><<<grid, attn::NT, 0, st>>>(
+        static_cast<const float*>(parts), ml, static_cast<float*>(o), l, R,
+        D, true);
+  } else if (dtype == 1) {
+    decode_combine<__nv_bfloat16, __nv_bfloat16><<<grid, attn::NT, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(parts), ml,
+        static_cast<__nv_bfloat16*>(o), l, R, D, true);
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
 }

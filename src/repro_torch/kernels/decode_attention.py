@@ -10,6 +10,16 @@ synchronisation.  Its plain version is ``ref.decode_attention_naive``
 (``ops`` sends CPU tensors to ``ref``); ``ref.decode_attention_split`` is
 the split algorithm itself, for the tests.  ``launches`` counts the calls
 of this process that launched the kernels (two launches each).
+
+Tensor-parallel serving keeps a cache split over the sequence: each rank
+holds rows [k_offset, k_offset + S) of it.  ``decode_attention`` takes the
+share's ``k_offset`` and can return each row's log-sum-exp beside the
+output; ``merge`` combines the ranks' (output, log-sum-exp) with the same
+combine kernel (``merge_launches`` counts its calls; plain version
+``ref.decode_merge``).  ``decode_attention_abstract`` and
+``merge_abstract`` are the shape paths of abstract (fake) tensors, the
+dry-run's: the kernels' allocations and their FLOPs counted, nothing
+computed.
 """
 
 from __future__ import annotations
@@ -24,6 +34,10 @@ from ._wrap import (DTYPES, check_bthd, check_common, check_lengths,
                     check_no_grad, raise_on_error)
 
 launches = 0
+merge_launches = 0
+# FLOPs of the calls made on abstract tensors in this process (the dry-run
+# adds them to its FLOP counter, which does not see a kernel)
+abstract_flops = 0.0
 
 # streaming multiprocessors of an H100 SXM; the split plan aims to cover them
 SMS = 132
@@ -31,12 +45,17 @@ SMS = 132
 TILE = 32
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"decode_attention_fwd": [
-    _I, _I, _P, _P, _P, _P, _P,            # dtype, D, q, k, v, o, lengths
-    _P, _P, _I,                            # partials acc, (m, l); n_splits
-    _I, _I, _I, _I,                        # B, S, Hq, Hkv
-    _LL, _LL, _LL, _LL, _LL,               # q batch; k, v (b, s) strides
-    _I, ctypes.c_float, _P]}               # window, scale, stream
+_SIGNATURES = {
+    "decode_attention_fwd": [
+        _I, _I, _P, _P, _P, _P,            # dtype, D, q, k, v, o
+        _P, _P,                            # lse (or null), lengths
+        _P, _P, _I,                        # partials acc, (m, l); n_splits
+        _I, _I, _I, _I,                    # B, S, Hq, Hkv
+        _LL, _LL, _LL, _LL, _LL,           # q batch; k, v (b, s) strides
+        _I, _LL, ctypes.c_float, _P],      # window, k_offset, scale, stream
+    "decode_attention_merge": [
+        _I, _I, _P, _P, _P, _P,            # dtype, D, parts, lses, o, lse
+        _I, _I, _I, _P]}                   # R, B, Hq, stream
 
 
 def split_plan(b: int, hkv: int, s: int, window: int | None) -> int:
@@ -49,27 +68,21 @@ def split_plan(b: int, hkv: int, s: int, window: int | None) -> int:
 
 
 def split_range(length: int, s: int, window: int | None, n_splits: int,
-                i: int) -> tuple[int, int]:
+                i: int, k_offset: int = 0) -> tuple[int, int]:
     """Keys [a, b) of split ``i``: the i-th equal share, in whole tiles
-    counted from its start, of the valid range [max(0, length - window),
-    min(length, s)).  The kernel's ``split_range`` computes the same."""
+    counted from its start, of the valid range of a cache whose row 0 is
+    the global position ``k_offset``: [clamp(max(0, length - window) -
+    k_offset), clamp(length - k_offset)), each clamped to [0, s).  The
+    kernel's ``split_range`` computes the same."""
     lo = 0 if window is None else max(0, length - window)
-    hi = min(length, s)
+    lo = min(max(lo - k_offset, 0), s)
+    hi = min(max(length - k_offset, 0), s)
     tiles = -(-(hi - lo) // TILE) if hi > lo else 0
     return (lo + tiles * i // n_splits * TILE,
             min(hi, lo + tiles * (i + 1) // n_splits * TILE))
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     window: int | None = None) -> torch.Tensor:
-    """q: (B, 1, Hq, D); caches: (B, S, Hkv, D); lengths: (B,) valid cache
-    entries.  Returns (B, 1, Hq, D) in q's dtype.  Semantics of
-    ``repro.kernels.ref.decode_attention_naive``."""
-    global launches
-    check_no_grad("decode_attention",
-                  "no training slice needs one: training attends over whole "
-                  "sequences through flash attention", q, k_cache, v_cache)
+def _check_decode(q, k_cache, v_cache, lengths, window):
     w = check_common(q, window)
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         check_bthd(name, x, q.dtype, q.device)
@@ -84,10 +97,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    lens = check_lengths(lengths, b, q.device)
+    return w, check_lengths(lengths, b, q.device)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int | None = None, k_offset: int = 0,
+                     return_lse: bool = False):
+    """q: (B, 1, Hq, D); caches: (B, S, Hkv, D), rows [k_offset, k_offset +
+    S) of the sequence; lengths: (B,) valid entries of the whole sequence.
+    Returns (B, 1, Hq, D) in q's dtype, and with ``return_lse`` also each
+    row's log-sum-exp of its scaled scores, (B, Hq) fp32 (``ref.NEG_INF``
+    for a row with no valid key in the share).  Semantics of
+    ``repro.kernels.ref.decode_attention_naive`` on a whole cache."""
+    global launches
+    check_no_grad("decode_attention",
+                  "no training slice needs one: training attends over whole "
+                  "sequences through flash attention", q, k_cache, v_cache)
+    w, lens = _check_decode(q, k_cache, v_cache, lengths, window)
+    b, _, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
     lib = _build.load("decode_attention", _SIGNATURES)
     ns = split_plan(b, hkv, s, window)
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     part_acc = torch.empty((b, hq, ns, d), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((b, hq, ns, 2), dtype=torch.float32,
@@ -95,10 +129,84 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_fwd(
         DTYPES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), lens.data_ptr(),
+        v_cache.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), lens.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), ns, b, s, hq, hkv,
         q.stride(0), k_cache.stride(0), k_cache.stride(1),
-        v_cache.stride(0), v_cache.stride(1), w, 1.0 / math.sqrt(d), stream)
+        v_cache.stride(0), v_cache.stride(1), w, int(k_offset),
+        1.0 / math.sqrt(d), stream)
     launches += 1
     raise_on_error(err, "decode_attention")
+    return (out, lse) if return_lse else out
+
+
+def _check_merge(outs: torch.Tensor, lses: torch.Tensor) -> None:
+    if outs.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA kernel takes CUDA tensors, got {outs.device}; "
+            "ops.* sends CPU tensors to the plain version")
+    if outs.dtype not in DTYPES:
+        raise ValueError(f"unsupported dtype {outs.dtype}: float32 or "
+                         "bfloat16")
+    if outs.dim() != 4 or lses.shape != outs.shape[:3]:
+        raise ValueError(f"outs (B, Hq, R, D) and lses (B, Hq, R), got "
+                         f"{tuple(outs.shape)} and {tuple(lses.shape)}")
+    if lses.dtype != torch.float32 or lses.device != outs.device:
+        raise ValueError(f"lses must be float32 on {outs.device}")
+    if outs.shape[-1] % 2 or not outs.is_contiguous() \
+            or not lses.is_contiguous():
+        raise ValueError("outs and lses must be contiguous, D even")
+
+
+def merge(outs: torch.Tensor, lses: torch.Tensor):
+    """The ranks' results over a cache split along the sequence merged:
+    ``outs`` (B, Hq, R, D) their outputs, ``lses`` (B, Hq, R) their
+    log-sum-exps (``decode_attention(..., return_lse=True)`` on each
+    share).  Returns (B, 1, Hq, D) in the outputs' dtype: the attention
+    over the whole cache.  One launch of the combine kernel."""
+    global merge_launches
+    _check_merge(outs, lses)
+    b, hq, r, d = outs.shape
+    lib = _build.load("decode_attention", _SIGNATURES)
+    out = torch.empty((b, 1, hq, d), dtype=outs.dtype, device=outs.device)
+    stream = torch.cuda.current_stream(outs.device).cuda_stream
+    err = lib.decode_attention_merge(DTYPES[outs.dtype], d, outs.data_ptr(),
+                                     lses.data_ptr(), out.data_ptr(), None,
+                                     r, b, hq, stream)
+    merge_launches += 1
+    raise_on_error(err, "decode_attention_merge")
     return out
+
+
+def decode_attention_abstract(q, k_cache, v_cache, lengths, *, window=None,
+                              k_offset: int = 0, return_lse: bool = False):
+    """``decode_attention`` on abstract (fake) tensors: the output, the
+    log-sum-exps and the split partials allocated as the wrapper allocates
+    them (``split_plan``), and 4·B·Hq·D FLOPs a key counted over the keys a
+    full cache holds in this share (every row valid, at most ``window``);
+    nothing computed."""
+    global abstract_flops
+    b, _, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    ns = split_plan(b, hkv, s, window)
+    keys = s if window is None else min(s, int(window))
+    abstract_flops += 4.0 * b * hq * d * keys
+    out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
+    scratch = (torch.empty((b, hq, ns, d), dtype=torch.float32,
+                           device=q.device),
+               torch.empty((b, hq, ns, 2), dtype=torch.float32,
+                           device=q.device))
+    del scratch
+    if return_lse:
+        return out, torch.empty((b, hq), dtype=torch.float32,
+                                device=q.device)
+    return out
+
+
+def merge_abstract(outs, lses):
+    """``merge`` on abstract tensors: its output allocated, 3·B·Hq·R·D
+    FLOPs counted."""
+    global abstract_flops
+    b, hq, r, d = outs.shape
+    abstract_flops += 3.0 * b * hq * r * d
+    return torch.empty((b, 1, hq, d), dtype=outs.dtype, device=outs.device)

@@ -18,11 +18,12 @@ No backend value sends a CUDA tensor to the plain version.  Models call only
 these entry points.
 
 An abstract tensor (a ``FakeTensor``: the dry-run, ``launch.dryrun``) takes
-flash attention's shape path, ``flash_attention.flash_attention_abstract``:
-the kernels' outputs and scratch allocated as on the card and their FLOPs
-counted, nothing computed.  The plain blocked loop would issue about 10⁵
-abstract ops a layer at a 4k context, and its fp32 block temporaries are
-not what the card holds.
+the attention kernels' shape paths, ``flash_attention.
+flash_attention_abstract`` and ``decode_attention.decode_attention_abstract``
+/ ``merge_abstract``: the kernels' outputs and scratch allocated as on the
+card and their FLOPs counted, nothing computed.  The plain blocked loop
+would issue about 10⁵ abstract ops a layer at a 4k context, and the plain
+decode an fp32 copy of each layer's cache; neither is what the card holds.
 """
 
 from __future__ import annotations
@@ -90,12 +91,28 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 # Decode attention (one token vs. KV cache)
 # --------------------------------------------------------------------------
 
-def decode_attention(q, k_cache, v_cache, lengths, *, window=None):
+def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
+                     k_offset=0, return_lse=False):
+    """One token against a cache, or against a rank's share of one that
+    starts at the global position ``k_offset``; with ``return_lse`` also the
+    rows' log-sum-exps, for ``decode_merge``."""
+    kw = dict(window=window, k_offset=k_offset, return_lse=return_lse)
+    if _abstract(q):
+        return da.decode_attention_abstract(q, k_cache, v_cache, lengths,
+                                            **kw)
     if _on_cuda(q):
-        return da.decode_attention(q, k_cache, v_cache, lengths,
-                                   window=window)
-    return ref.decode_attention_naive(q, k_cache, v_cache, lengths,
-                                      window=window)
+        return da.decode_attention(q, k_cache, v_cache, lengths, **kw)
+    return ref.decode_attention_naive(q, k_cache, v_cache, lengths, **kw)
+
+
+def decode_merge(outs, lses):
+    """The ranks' (output, log-sum-exp) over a sequence-split cache, (B, Hq,
+    R, D) and (B, Hq, R), merged into (B, 1, Hq, D)."""
+    if _abstract(outs):
+        return da.merge_abstract(outs, lses)
+    if _on_cuda(outs):
+        return da.merge(outs, lses)
+    return ref.decode_merge(outs, lses)
 
 
 # --------------------------------------------------------------------------

@@ -265,9 +265,14 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention_naive(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                           window: int | None = None) -> torch.Tensor:
-    """q: (B, 1, Hq, D); caches: (B, S, Hkv, D); lengths: (B,) — number of
-    valid cache entries (the new token's position is lengths-1)."""
+                           window: int | None = None, k_offset: int = 0,
+                           return_lse: bool = False):
+    """q: (B, 1, Hq, D); caches: (B, S, Hkv, D) — rows [k_offset, k_offset
+    + S) of the sequence (0: the whole cache); lengths: (B,) — number of
+    valid entries of the whole sequence (the new token's position is
+    lengths-1).  With ``return_lse`` also each row's log-sum-exp of its
+    scaled scores over the share's valid keys, (B, Hq) fp32, NEG_INF for a
+    row without one."""
     b, _, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
     qg = _gqa_expand(q, hkv)[:, 0]                       # (b,hkv,g,d)
@@ -275,7 +280,7 @@ def decode_attention_naive(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
                           k_cache.float()) * scale
     lengths = _as_lengths(lengths, b, q.device)
-    kpos = torch.arange(s, device=q.device)[None, :]
+    kpos = k_offset + torch.arange(s, device=q.device)[None, :]
     msk = kpos < lengths[:, None]
     if window is not None:
         msk &= kpos >= (lengths[:, None] - window)
@@ -283,18 +288,24 @@ def decode_attention_naive(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(msk, scores, NEG_INF)
     m = scores.amax(-1, keepdim=True)
     p = torch.where(msk, torch.exp(scores - m), 0.0)
-    p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    den = p.sum(-1, keepdim=True)
+    p = p / den.clamp_min(1e-30)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return o.reshape(b, 1, hq, d).to(q.dtype)
+    o = o.reshape(b, 1, hq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(den > 0, m + torch.log(den.clamp_min(1e-30)), NEG_INF)
+    return o, lse.reshape(b, hq)
 
 
 def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, lengths: torch.Tensor, *,
                            window: int | None = None,
-                           n_splits: int | None = None) -> torch.Tensor:
+                           n_splits: int | None = None, k_offset: int = 0,
+                           return_lse: bool = False):
     """Flash-decoding, the algorithm of the CUDA decode kernels: fp32
-    partials (m, l, acc) of every split of each sequence's valid range
-    (``decode_attention.split_plan`` / ``split_range``), then
+    partials (m, l, acc) of every split of each sequence's valid range in
+    the share (``decode_attention.split_plan`` / ``split_range``), then
     ``decode_combine``.  Semantics of ``decode_attention_naive``."""
     from .decode_attention import split_plan, split_range
 
@@ -308,7 +319,7 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
     ml[..., 0] = NEG_INF                                 # empty split
     for bi, length in enumerate(torch.as_tensor(lengths).tolist()):
         for si in range(ns):
-            a, e = split_range(length, s, window, ns, si)
+            a, e = split_range(length, s, window, ns, si, k_offset)
             if e <= a:
                 continue
             k = k_cache[bi, a:e].float()                 # (n,hkv,d)
@@ -319,17 +330,37 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
             acc[bi, :, si] = o.reshape(hq, d)
             ml[bi, :, si, 0] = m.reshape(hq)
             ml[bi, :, si, 1] = p.sum(-1).reshape(hq)
-    return decode_combine(acc, ml)[:, None].to(q.dtype)
+    out = decode_combine(acc, ml, return_lse=return_lse)
+    if return_lse:
+        return out[0][:, None].to(q.dtype), out[1]
+    return out[:, None].to(q.dtype)
 
 
-def decode_combine(acc: torch.Tensor, ml: torch.Tensor) -> torch.Tensor:
+def decode_combine(acc: torch.Tensor, ml: torch.Tensor, *,
+                   return_lse: bool = False):
     """Merge split partials: acc (b, hq, ns, d), ml (b, hq, ns, 2) → (b, hq,
     d).  out = Σ e^(m_s - M) acc_s / max(Σ e^(m_s - M) l_s, 1e-30), so a row
-    whose every split is empty is 0."""
+    whose every split is empty is 0; with ``return_lse`` also its
+    log-sum-exp M + log Σ e^(m_s - M) l_s, NEG_INF for an empty row."""
     m, l = ml[..., 0], ml[..., 1]
-    w = torch.exp(m - m.amax(-1, keepdim=True))
-    den = (w * l).sum(-1).clamp_min(1e-30)
-    return (w[..., None] * acc).sum(-2) / den[..., None]
+    mx = m.amax(-1, keepdim=True)
+    w = torch.exp(m - mx)
+    raw = (w * l).sum(-1)
+    den = raw.clamp_min(1e-30)
+    out = (w[..., None] * acc).sum(-2) / den[..., None]
+    if not return_lse:
+        return out
+    return out, torch.where(raw > 0, mx[..., 0] + torch.log(den), NEG_INF)
+
+
+def decode_merge(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The ranks' results over a cache split along the sequence merged
+    (the plain version of ``decode_attention.merge``): outs (b, hq, R, d)
+    the ranks' normalised outputs, lses (b, hq, R) their log-sum-exps,
+    each rank a partial with m = lse and l = 1 (0 when it had no key), then
+    ``decode_combine``.  Returns (b, 1, hq, d) in the outputs' dtype."""
+    ml = torch.stack([lses.float(), (lses > NEG_INF / 2).float()], -1)
+    return decode_combine(outs.float(), ml)[:, None].to(outs.dtype)
 
 
 # --------------------------------------------------------------------------

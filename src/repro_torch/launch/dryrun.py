@@ -10,20 +10,26 @@ For each cell:
   3. The step runs under ``FakeTensorMode`` on DTensors placed by
      ``specs`` (no storage anywhere): for train, the sharded step with
      AdamW (``sharding.spmd``), or the GPipe pipeline under
-     ``--force-global model``; for prefill, ``apply_prefill`` on each
-     rank's local slices.  The kernels' plain versions run, as in the
+     ``--force-global model``; for prefill, ``spmd.make_sharded_prefill``;
+     for decode, ``spmd.make_sharded_decode`` with the cache an argument,
+     written in place (the reference donates it).  Under ``tp_axes`` the
+     serving steps keep every weight split and move activations
+     (``models.layers``).  The kernels' plain versions run, as in the
      reference (``ops.set_backend("blocked")``).
-     Flash attention on these abstract tensors takes its kernels' shape
-     path (``ops``): their outputs and scratch allocated as on the card,
-     their FLOPs counted analytically (``flash_attention.visible_pairs``).
+     The attention kernels on these abstract tensors take their shape
+     paths (``ops``): their outputs and scratch allocated as on the card,
+     their FLOPs counted analytically (``flash_attention.visible_pairs``;
+     decode every key of the cache or its share, at most the window).
   4. ``MemTracker`` gives the per-GPU peak; ``FlopCounterMode`` the FLOPs
      per GPU, plus the attention kernels'; every collective issued is
      recorded (``CollectiveRecorder``) and its result bytes summed per kind
      under the reference's HLO names (``collective_bytes``).
 
-A cell whose plan shards over ``tp_axes`` (the tensor-parallel serving
-layouts ``dp_tp`` and ``dp_tp_ep``) is recorded ``not_ported``: that slice
-comes next.
+A cell the port has no step for is recorded ``not_ported`` with the reason
+(``not_ported``): training under ``tp_axes``, tensor parallelism beside a
+sequence split (``ctx_tp``, ``seq_tp``) or over two axes (``tp_all`` at
+B = 1), and a decode cache split over ``seq_axes``.  ``plan_gpu`` picks
+none of these on the GPU meshes; only ``--layout`` reaches them.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
@@ -44,6 +50,7 @@ import traceback
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import SHAPES, build_model, shape_applicable
@@ -229,25 +236,41 @@ def _pipeline_train_step(model, shape, plan, mesh, args: dict):
     return lambda: step(args["params"], args["opt"], args["batch"])
 
 
-def _prefill_step(model, shape, plan, mesh, args: dict):
-    """``apply_prefill`` on each rank's slices: the parameters (bf16)
-    gathered layer by layer, no gradient."""
+def _serving_args(model, shape, plan, mesh, args: dict) -> None:
     params = model.param_specs(torch.bfloat16)
     args["params"] = specs.param_shardings(mesh, params, plan, device="cpu")
     args["batch"] = _fake(model.input_specs(shape))
-    local = spmd.local_batch(mesh, args["batch"], plan)
-    args["local_batch"] = local
-    gather = spmd._Gather(mesh, plan, spmd.token_axes(mesh, args["batch"],
-                                                      plan),
-                          model.cfg.moe.num_experts if model.cfg.moe
-                          else None)
+    args["local_batch"] = spmd.local_batch(mesh, args["batch"], plan)
 
-    def run():
-        with torch.no_grad(), spmd.local_view(mesh, plan, gather):
-            return model.apply_prefill(
-                spmd.local_params(args["params"], gather), local,
-                moe_impl=plan.moe_impl)
-    return run
+
+def _prefill_step(model, shape, plan, mesh, args: dict):
+    """``spmd.make_sharded_prefill``: the parameters (bf16) on their
+    shards, no gradient; the prompt's cache returned."""
+    _serving_args(model, shape, plan, mesh, args)
+    step = spmd.make_sharded_prefill(model, plan, mesh)
+    return lambda: step(args["params"], args["batch"])
+
+
+def _decode_step(model, shape, plan, mesh, args: dict):
+    """``spmd.make_sharded_decode`` over the cache of ``shape`` (an
+    argument, each rank's shard of it, written in place)."""
+    _serving_args(model, shape, plan, mesh, args)
+    args["cache"] = specs.cache_shardings(mesh, model.cache_specs(shape),
+                                          plan, device="cpu")
+    step = spmd.make_sharded_decode(model, plan, mesh)
+    return lambda: step(args["params"], args["cache"], args["batch"])
+
+
+def not_ported(plan, shape) -> str | None:
+    """Why the port has no step for the cell, or None."""
+    try:
+        if shape.kind == "train":
+            spmd.require_no_tp(plan)
+        else:
+            spmd.require_serving_layout(plan, shape.kind)
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 def trace_cell(model, shape, plan, mesh) -> dict:
@@ -262,15 +285,16 @@ def trace_cell(model, shape, plan, mesh) -> dict:
     pipeline = (shape.kind == "train" and plan.pipeline_stages > 1
                 and cfg.family in ("dense", "moe", "ssm", "hybrid"))
     build = (_pipeline_train_step if pipeline else
-             _train_step if shape.kind == "train" else _prefill_step)
+             {"train": _train_step, "prefill": _prefill_step,
+              "decode": _decode_step}[shape.kind])
     args: dict = {}
     rec = _recording_mode()
     flops = FlopCounterMode(display=False)
     mt = MemTracker()
-    fa.abstract_flops = 0.0
+    fa.abstract_flops = da.abstract_flops = 0.0
     with FakeTensorMode(), mt:
         run = build(model, shape, plan, mesh, args)
-        arg_bytes = sum(_local_bytes(x) for k in ("params", "opt",
+        arg_bytes = sum(_local_bytes(x) for k in ("params", "opt", "cache",
                                                    "local_batch")
                         for x in tree.leaves(args.get(k)))
         with rec, flops:
@@ -287,8 +311,9 @@ def trace_cell(model, shape, plan, mesh) -> dict:
                             peak_per_device=kinds.pop("total", 0),
                             peak_by_kind=kinds),
                 cost=dict(flops=float(flops.get_total_flops())
-                          + fa.abstract_flops,
-                          attention_flops=fa.abstract_flops),
+                          + fa.abstract_flops + da.abstract_flops,
+                          attention_flops=fa.abstract_flops
+                          + da.abstract_flops),
                 collectives=collective_bytes(rec.records))
 
 
@@ -311,7 +336,7 @@ def run_cell(arch: str, shape_name: str, multi_node: bool = False,
              cfg=None) -> dict:
     """Plans and traces one cell; writes its JSON record under ``out_dir``
     (None: no file) and returns it.  ``status`` is ``ok``, ``skipped`` (the
-    shape does not apply) or ``not_ported`` (a tensor-parallel plan)."""
+    shape does not apply) or ``not_ported`` (``not_ported``'s layouts)."""
     mesh_desc = GPU_MULTI_NODE if multi_node else GPU_NODE
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
@@ -327,10 +352,9 @@ def run_cell(arch: str, shape_name: str, multi_node: bool = False,
                                          force_layout, moe_impl,
                                          force_global, cfg)
     rec["plan"] = _plan_record(plan)
-    if plan.tp_axes:
-        rec.update(status="not_ported", reason=(
-            f"layout {plan.local_layout} shards over tp_axes "
-            f"{list(plan.tp_axes)}: the tensor-parallel slice"))
+    why = not_ported(plan, shape)
+    if why is not None:
+        rec.update(status="not_ported", reason=why)
         _write(rec, out_dir, arch, shape_name, multi_node, force_layout,
                moe_impl)
         return rec

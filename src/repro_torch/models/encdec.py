@@ -96,16 +96,6 @@ def _no_seq_split(cfg: ArchConfig) -> None:
             "plan asks for one")
 
 
-def _cross_kv(cfg: ArchConfig, p: dict, enc: torch.Tensor
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    b, te, _ = enc.shape
-    hkv, hd = cfg.n_kv_heads, cfg.hd
-    ec = enc.to(torch.bfloat16)
-    k = (ec @ p["wk"].to(torch.bfloat16)).reshape(b, te, hkv, hd)
-    v = (ec @ p["wv"].to(torch.bfloat16)).reshape(b, te, hkv, hd)
-    return k, v
-
-
 def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
            enc: torch.Tensor | None = None, mode: str = "train",
            cache: dict | None = None, lengths: torch.Tensor | None = None,
@@ -120,7 +110,7 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     place of the logits."""
     b, t = tokens.shape
     x = shard_ctx.constrain_act(
-        L.embed(params["embed"], tokens).to(torch.bfloat16))
+        L.embed(params["embed"], tokens, cfg.vocab).to(torch.bfloat16))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
@@ -145,7 +135,7 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         if mode == "decode":
             xk, xv = lc["xk"], lc["xv"]
         else:
-            xk, xv = _cross_kv(cfg, p["xattn"], enc)
+            xk, xv = L.cross_kv(cfg, p["xattn"], enc)
         c, _ = L.attention(cfg, p["xattn"], hx, positions=positions,
                            mode=mode, causal=False, kv_override=(xk, xv))
         x = x + c

@@ -24,6 +24,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import comm
 from repro_torch.sharding import ctx as shard_ctx
 from . import layers as L
 from .config import ArchConfig
@@ -317,12 +318,13 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """
     b, t = tokens.shape
     x = shard_ctx.constrain_act(
-        L.embed(params["embed"], tokens).to(L.COMPUTE_DTYPE))
+        L.embed(params["embed"], tokens, cfg.vocab).to(L.COMPUTE_DTYPE))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
         positions = (lengths - 1)[:, None]
-        kv_len = cache["k"].shape[2] if "k" in cache else t
+        # the whole cache's length (a rank may hold a share of it)
+        kv_len = shard_ctx.kv_len(cache["k"].shape[2]) if "k" in cache else t
     else:
         # under a sequence split, ``tokens`` are this rank's slice of the
         # sequence: global positions, and the whole sequence's length
@@ -362,6 +364,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_tail is not None:
         x = x[:, -logits_tail:]
+        group = shard_ctx.seq_group()
+        if group is not None:
+            # under a sequence split the last positions are the last rank's
+            x = comm.all_gather_autograd(x, 0, group)[-b:]
     if return_hidden:
         return x, new_cache
     return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),

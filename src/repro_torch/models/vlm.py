@@ -82,9 +82,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     ``return_hidden``: the final-normed hidden states in place of the
     logits."""
     b, t = tokens.shape
-    hkv, hd = cfg.n_kv_heads, cfg.hd
     x = shard_ctx.constrain_act(
-        L.embed(params["embed"], tokens).to(torch.bfloat16))
+        L.embed(params["embed"], tokens, cfg.vocab).to(torch.bfloat16))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
@@ -121,10 +120,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         if mode == "decode":
             xk, xv = gc["xk"], gc["xv"]
         else:
-            xk = (vis @ pc["xattn"]["wk"].to(torch.bfloat16)
-                  ).reshape(b, -1, hkv, hd)
-            xv = (vis @ pc["xattn"]["wv"].to(torch.bfloat16)
-                  ).reshape(b, -1, hkv, hd)
+            xk, xv = L.cross_kv(cfg, pc["xattn"], vis)
         c, _ = L.attention(cfg, pc["xattn"], h, positions=positions,
                            mode=mode, causal=False, kv_override=(xk, xv))
         x = x + torch.tanh(pc["gate_attn"]).to(x.dtype) * c

@@ -16,11 +16,22 @@ reference's ``shard_map`` bodies do, and publishes two more things here:
 * the sequence split, read off the activation spec's sequence entry: under
   it, attention gathers keys and values over ``seq_group()`` and offsets
   its queries by ``seq_offset``.
+
+The tensor-parallel serving steps (``spmd.make_sharded_prefill`` and
+``make_sharded_decode``) publish a ``TPState`` (``tensor_parallel``): the
+group of the plan's ``tp_axes`` with this rank's index and its width, and
+how the caches lie over it, read from ``specs.cache_pspec`` after
+``sanitize`` on the caches' real shapes.  The layers read it
+(``layers``): each weight computes on the shard its spec gives it, and
+activations cross the group where a split cuts through heads.  Without it
+every accessor gives the unsplit answer (width 1, offset 0), so every other
+path is unchanged.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Callable
 
 from .specs import Spec, placements
@@ -30,6 +41,7 @@ _LOGITS_SPEC: Spec | None = None    # (batch, seq, vocab)
 _MESH = None                        # DeviceMesh of the collective paths
 _EP_AXIS: str | tuple | None = None  # expert-parallel mesh axis
 _GATHER: Callable | None = None     # the sharded step's per-layer gather
+_TP: "TPState | None" = None        # the tensor-parallel serving state
 
 
 def set_specs(act: Spec | None, logits: Spec | None, mesh=None,
@@ -139,3 +151,63 @@ def seq_offset(t_local: int) -> int:
     """The global position of this rank's first token."""
     r, _ = seq_rank_size()
     return r * t_local
+
+
+# --------------------------------------------------------------------------
+# Tensor-parallel serving
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPState:
+    """The tensor-parallel layout a serving step runs under.
+
+    ``kv``: the self-attention cache ``k``/``v`` split over the group by its
+    KV heads ("heads"), by its sequence ("seq": this rank holds rows
+    [rank·S, (rank+1)·S) of the whole), or whole on every rank (None).
+    ``xkv``: the cross caches ``xk``/``xv``, "heads" or None.  ``ssm_heads``
+    and ``conv``: the SSM state ``h`` split by heads, the conv context by
+    channels."""
+    group: Any
+    rank: int
+    size: int
+    kv: str | None = None
+    xkv: str | None = None
+    ssm_heads: bool = False
+    conv: bool = False
+
+
+@contextlib.contextmanager
+def tensor_parallel(state: TPState | None):
+    """Publish ``state`` for the model code's run on local tensors."""
+    global _TP
+    prev, _TP = _TP, state
+    try:
+        yield
+    finally:
+        _TP = prev
+
+
+def tp() -> TPState | None:
+    """The published tensor-parallel state, or None outside a tp step."""
+    return _TP
+
+
+def tp_rank_size() -> tuple[int, int]:
+    """(this rank's index in the tensor-parallel group, its width); (0, 1)
+    without one."""
+    return (0, 1) if _TP is None else (_TP.rank, _TP.size)
+
+
+def k_offset(s_local: int) -> int:
+    """The global position of this rank's first self-attention cache row,
+    for a share of ``s_local`` rows."""
+    if _TP is None or _TP.kv != "seq":
+        return 0
+    return _TP.rank * s_local
+
+
+def kv_len(s_local: int) -> int:
+    """The whole self-attention cache's length, from this rank's share."""
+    if _TP is None or _TP.kv != "seq":
+        return s_local
+    return s_local * _TP.size

@@ -1,7 +1,10 @@
-"""The sharded train step: the counterpart of the reference's
-``jax.jit(make_train_step(...), in_shardings=...)`` (``launch/dryrun.py``),
-for every plan whose ``tp_axes`` are empty (data parallelism, FSDP, and the
-sequence split with expert parallelism).
+"""The sharded steps: the counterparts of the reference's
+``jax.jit(make_train_step(...), in_shardings=...)`` and of its serving
+``jax.jit(prefill | decode, in_shardings=..., out_shardings=...)``
+(``launch/dryrun.py``).
+
+The train step covers every plan whose ``tp_axes`` are empty (data
+parallelism, FSDP, and the sequence split with expert parallelism):
 
 * Parameters and optimizer state are DTensors placed by ``specs``: that is
   the memory layout.  The batch is each rank's shard of it
@@ -24,8 +27,20 @@ sequence split with expert parallelism).
   the reduced gradient equals the unsharded one; the clip norm is global
   (``optimizer.global_norm``).
 
-A plan with ``tp_axes`` raises ``NotImplementedError``: tensor parallelism
-comes with the serving slice that needs it.
+A training plan with ``tp_axes`` raises ``NotImplementedError``.
+
+The serving steps (``make_sharded_prefill``, ``make_sharded_decode``) cover
+every prefill or decode plan whose ``tp_axes`` are one mesh axis and whose
+``seq_axes`` are empty (``dp_tp``, ``dp_tp_fsdp``, their ``_ep``/``_ep_q8``
+variants, ``tp_all`` at B > 1), and the plans without ``tp_axes``.  The
+parameters (bf16) and caches are DTensors placed by ``specs``; the step
+publishes the plan and a ``ctx.TPState`` (the tp group, and how the caches
+lie over it after ``sanitize``) and runs the model on local tensors under
+``torch.no_grad()``.  Under ``tp_axes`` a layer's leaves keep their shard
+over the tp axis (only FSDP dims are gathered): the layers compute on
+their shards and move activations (``models.layers``).  The logits come
+back as a DTensor under ``specs.logits_pspec``, the cache as DTensors in
+its own placements, updated in place at decode.
 """
 
 from __future__ import annotations
@@ -51,8 +66,28 @@ def require_no_tp(plan: ShardingPlan) -> None:
     if plan.tp_axes:
         raise NotImplementedError(
             f"layout {plan.local_layout!r} shards over tp_axes "
-            f"{plan.tp_axes}: tensor parallelism comes with the "
-            "tensor-parallel serving slice")
+            f"{plan.tp_axes}: training under tensor parallelism is not "
+            "ported (the serving steps are)")
+
+
+def require_serving_layout(plan: ShardingPlan, kind: str) -> None:
+    """Raises for the layouts the serving steps of ``kind`` ("prefill" or
+    "decode") do not cover: tensor parallelism over two axes (``tp_all`` at
+    B = 1) or beside a sequence split (``ctx_tp``, ``seq_tp``), and a
+    decode cache split over ``seq_axes``."""
+    if kind == "decode" and plan.seq_axes and not plan.tp_axes:
+        raise NotImplementedError(
+            f"layout {plan.local_layout!r} splits the decode cache over "
+            f"seq_axes {plan.seq_axes}: not ported")
+    if len(plan.tp_axes) > 1:
+        raise NotImplementedError(
+            f"layout {plan.local_layout!r} splits tensors over two axes "
+            f"{plan.tp_axes}: not ported")
+    if plan.tp_axes and plan.seq_axes:
+        raise NotImplementedError(
+            f"layout {plan.local_layout!r} adds a sequence split over "
+            f"{plan.seq_axes} to tensor parallelism over {plan.tp_axes}: "
+            "not ported")
 
 
 def act_specs(plan: ShardingPlan) -> tuple[specs.Spec, specs.Spec]:
@@ -104,6 +139,10 @@ class _Gather:
         self.replicate = tuple(Replicate() for _ in names)
         self.grad = tuple(Partial() if a in toks else Replicate()
                           for a in names)
+        # under tensor parallelism (serving) every leaf keeps its shard over
+        # the tp axis; only its FSDP dims are gathered
+        self.tp_dim = (names.index(plan.tp_axes[0]) if plan.tp_axes
+                       else None)
         # the mesh dim the expert stacks keep their experts split over
         self.ep_dim = None
         if num_experts and plan.moe_impl in ("ep_a2a", "ep_a2a_q8"):
@@ -114,6 +153,10 @@ class _Gather:
     def compute(self, path: tuple, leaf) -> tuple[tuple, tuple]:
         """(compute placements, gradient placements) of a layer's leaf; the
         expert dim of an expert stack is its third from last."""
+        if self.tp_dim is not None:
+            pl = list(self.replicate)
+            pl[self.tp_dim] = leaf.placements[self.tp_dim]
+            return tuple(pl), tuple(pl)
         if (self.ep_dim is not None and "moe" in path
                 and path[-1] in EXPERT_STACKS):
             from torch.distributed.tensor import Shard
@@ -225,3 +268,168 @@ def make_sharded_train_step(model, opt_cfg: optim.OptConfig,
 
 def _sum_over_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
     return comm.all_reduce(x, optim._world_of(mesh))
+
+
+# --------------------------------------------------------------------------
+# Serving: the sharded prefill and decode steps
+# --------------------------------------------------------------------------
+
+def tp_state(mesh, plan: ShardingPlan, cache: dict
+             ) -> shard_ctx.TPState | None:
+    """The tensor-parallel state of a serving step over ``cache`` (whole
+    shapes: DTensors, or ``meta`` stand-ins of a prompt's cache): the tp
+    group, this rank, and where ``specs.cache_specs_tree`` (after
+    ``sanitize``) puts the tp axis in each cache leaf.  None without
+    ``tp_axes``."""
+    if not plan.tp_axes:
+        return None
+    axis = plan.tp_axes[0]
+    names = list(mesh.mesh_dim_names)
+    i = names.index(axis)
+    sp = specs.cache_specs_tree(mesh, cache, plan)
+
+    def on(name: str, dim: int) -> bool:
+        return name in sp and axis in specs._entry_axes(sp[name][dim])
+
+    kv = "heads" if on("k", -2) else "seq" if on("k", -3) else None
+    return shard_ctx.TPState(
+        group=mesh.get_group(axis), rank=mesh.get_local_rank(i),
+        size=mesh.shape[i], kv=kv, xkv="heads" if on("xk", -2) else None,
+        ssm_heads=on("h", -3), conv=on("conv", -1))
+
+
+def prompt_cache_meta(model, batch: dict) -> dict:
+    """``meta`` stand-ins of the cache a prefill of ``batch`` returns: its
+    length is the prompt's (the audio family's cross rows the frames', the
+    VLM's the vision tokens')."""
+    from repro_torch.models import encdec, transformer, vlm
+    cfg = model.cfg
+    b, t = batch["tokens"].shape
+    meta = torch.device("meta")
+    if cfg.family == "audio":
+        return encdec.init_cache(cfg, b, t, batch["frames"].shape[1], meta)
+    if cfg.family == "vlm":
+        return vlm.init_cache(cfg, b, t, meta)
+    return transformer.init_cache(cfg, b, t, meta)
+
+
+def _as_dtensor(mesh, local: torch.Tensor, spec: specs.Spec, shape):
+    from torch.distributed.tensor import DTensor
+    shape = tuple(int(s) for s in shape)
+    return DTensor.from_local(local, mesh, specs.placements(mesh, spec),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=specs._contiguous_stride(shape))
+
+
+def _logits_out(mesh, plan: ShardingPlan, logits: torch.Tensor,
+                batch: dict, vocab: int):
+    shape = (batch["tokens"].shape[0], logits.shape[1], vocab)
+    return _as_dtensor(mesh, logits, specs.logits_pspec(mesh, plan, shape),
+                       shape)
+
+
+def serving_params(params: dict, gather: _Gather
+                   ) -> tuple[dict, _Gather | None]:
+    """The tree a serving step computes with, and the per-layer gather to
+    publish.  Where every leaf already lies as the layers compute with it
+    (no FSDP dim to gather: ``dp_tp``, ``P1_pure_dp``), every local shard
+    at once and no gather, so that the step runs no DTensor op (a layer's
+    ten redistributions cost about 2 ms of host time at decode); else
+    ``local_params`` and the per-layer gather."""
+    placed = []
+    specs.tree_map_with_path(lambda path, x: placed.append(
+        tuple(x.placements) == gather.compute(path, x)[0]), params)
+    if all(placed):
+        return specs.tree_map_with_path(lambda _, x: x.to_local(),
+                                        params), None
+    return local_params(params, gather), gather
+
+
+def _shapes(tree: dict) -> tuple:
+    return tuple((k, tuple(v.shape)) for k, v in tree.items())
+
+
+class _ServingSetup:
+    """What a serving step derives from its plan, mesh, parameters and
+    shapes: the tree the model computes with and the gather
+    (``serving_params``), the ``TPState`` and the cache's specs.  Worked
+    out on the first call and again only when the parameters' leaves or
+    the batch's or cache's shapes change; a decode step reuses them.  It
+    keeps the leaves it was given, so their ids stay theirs.  Under an FSDP
+    dim the parameters outside the stacks are gathered anew each call, as
+    the train step does, rather than kept whole."""
+
+    def __init__(self, model, plan: ShardingPlan, mesh):
+        self.model, self.plan, self.mesh = model, plan, mesh
+        self._key = None
+        self._leaves: list = []
+        self._val: tuple = ()
+
+    def __call__(self, params: dict, batch: dict, cache: dict) -> tuple:
+        """(tree, gather, TPState, cache specs) for ``cache``'s whole
+        shapes (DTensors, or ``meta`` stand-ins)."""
+        leaves = tree.leaves(params)
+        key = (tuple(map(id, leaves)), _shapes(batch), _shapes(cache))
+        if key != self._key:
+            cfg, mesh, plan = self.model.cfg, self.mesh, self.plan
+            gather = _Gather(mesh, plan, token_axes(mesh, batch, plan),
+                             cfg.moe.num_experts if cfg.moe else None)
+            ps, gather = serving_params(params, gather)
+            tp = tp_state(mesh, plan, cache)
+            sp = specs.cache_specs_tree(mesh, cache, plan)
+            self._val = (None if gather else ps, gather, tp, sp)
+            self._key, self._leaves = key, leaves
+            return ps, gather, tp, sp
+        ps, gather, tp, sp = self._val
+        if gather is not None:
+            ps = local_params(params, gather)
+        return ps, gather, tp, sp
+
+
+def make_sharded_prefill(model, plan: ShardingPlan, mesh) -> Callable:
+    """Returns prefill(params, batch) -> (logits, cache): ``params`` bf16
+    DTensors (``specs.param_shardings``), ``batch`` the global batch every
+    rank holds (split here by ``specs.batch_pspec``).  The last position's
+    logits (B, 1, V) come back as a DTensor under ``specs.logits_pspec``,
+    the prompt's cache as DTensors under ``specs.cache_specs_tree`` of its
+    shapes (the reference's ``out_shardings``)."""
+    require_serving_layout(plan, "prefill")
+    cfg = model.cfg
+    setup = _ServingSetup(model, plan, mesh)
+
+    def prefill(params, batch):
+        whole = prompt_cache_meta(model, batch)
+        ps, gather, tp, sp = setup(params, batch, whole)
+        local = local_batch(mesh, batch, plan)
+        with torch.no_grad(), local_view(mesh, plan, gather), \
+                shard_ctx.tensor_parallel(tp):
+            logits, cache = model.apply_prefill(ps, local,
+                                                moe_impl=plan.moe_impl)
+        cache = {k: _as_dtensor(mesh, v, sp[k], whole[k].shape)
+                 for k, v in cache.items()}
+        return _logits_out(mesh, plan, logits, batch, cfg.vocab), cache
+
+    return prefill
+
+
+def make_sharded_decode(model, plan: ShardingPlan, mesh) -> Callable:
+    """Returns decode(params, cache, batch) -> (logits, cache): one token a
+    sequence at position ``lengths - 1`` (``batch`` global, ``tokens`` (B,
+    1) and ``lengths`` (B,)); ``cache`` DTensors under ``specs.
+    cache_shardings``, written in place (the reference donates it) and
+    returned; the logits (B, 1, V) a DTensor under ``specs.logits_pspec``."""
+    require_serving_layout(plan, "decode")
+    cfg = model.cfg
+    setup = _ServingSetup(model, plan, mesh)
+
+    def decode(params, cache, batch):
+        ps, gather, tp, _ = setup(params, batch, cache)
+        local = local_batch(mesh, batch, plan)
+        lc = {k: v.to_local() for k, v in cache.items()}
+        with torch.no_grad(), local_view(mesh, plan, gather), \
+                shard_ctx.tensor_parallel(tp):
+            logits, _ = model.apply_decode(ps, lc, local,
+                                           moe_impl=plan.moe_impl)
+        return _logits_out(mesh, plan, logits, batch, cfg.vocab), cache
+
+    return decode

@@ -4,8 +4,11 @@ tests/test_dryrun_tools.py's HLO parser test; ``run_cell`` at the fake
 world of ``GPU_NODE`` (8 ranks) and ``GPU_MULTI_NODE`` (16) for reduced
 configurations, whose argument bytes must be the sum of one rank's shards
 and whose FLOPs per GPU must agree with the analytic ``step_flops``; the
-GPipe pipeline under ``force_global="model"``; and a tensor-parallel cell
-recorded ``not_ported``.  No process group outlives a cell.
+GPipe pipeline under ``force_global="model"``; the tensor-parallel serving
+cells (a decode cell over its cache, a prefill cell), a decode cell under
+a forced ``P1_pure_dp`` with its cache among the arguments; and a layout
+the port has no step for (training under ``tp_axes``) recorded
+``not_ported``.  No process group outlives a cell.
 """
 
 import dataclasses
@@ -123,11 +126,75 @@ def test_pipeline_cell_at_fake_world():
 
 
 def test_tensor_parallel_cell_is_not_ported():
-    rec = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None)
+    """Training under ``tp_axes`` (only ``--layout`` reaches it) has no
+    step in the port; the serving cells do."""
+    rec = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
+                          force_layout="dp_tp")
     assert rec["status"] == "not_ported"
     assert rec["plan"]["tp_axes"] == ("model",)
-    assert "tensor-parallel" in rec["reason"]
+    assert "training under tensor parallelism" in rec["reason"]
     assert "[NOT PORTED]" in dryrun.line(rec)
+
+
+def _serving_bytes(model, shape, plan, mesh) -> int:
+    """One rank's bf16 parameters, decode cache and batch, from the plan's
+    specs alone."""
+    def local_bytes(spec, leaf):
+        return _nbytes(specs.local_shape(mesh, spec, tuple(leaf.shape)),
+                       leaf.dtype)
+    params = model.param_specs(torch.bfloat16)
+    total = sum(tree.leaves(specs.tree_map_with_path(
+        lambda path, p: local_bytes(specs.sanitize(
+            mesh, specs.param_pspec(path, p, plan), tuple(p.shape)), p),
+        params)))
+    if shape.kind == "decode":
+        cache = model.cache_specs(shape)
+        sp = specs.cache_specs_tree(mesh, cache, plan)
+        total += sum(local_bytes(sp[k], v) for k, v in cache.items())
+    batch = model.input_specs(shape)
+    for k, v in specs.batch_specs_tree(mesh, batch, plan).items():
+        total += local_bytes(v, batch[k])
+    return total
+
+
+SERVING_CELLS = [("gemma-2b", "decode_32k", None),
+                 ("mistral-large-123b", "prefill_32k", "dp_tp"),
+                 ("gemma-2b", "decode_32k", "P1_pure_dp")]
+
+
+@pytest.mark.parametrize("aid,shape_name,layout", SERVING_CELLS)
+def test_serving_cell_at_fake_world(aid, shape_name, layout):
+    """The tensor-parallel serving steps trace: gemma-2b's decode_32k as
+    ``plan_gpu`` plans it (``dp_tp``: its one KV head puts the cache's
+    sequence over ``model``), mistral-large-123b's prefill_32k under
+    ``dp_tp`` (at full size ``plan_gpu`` picks it), and a decode cell under
+    a forced ``P1_pure_dp``, which traces ``apply_decode`` over the cache
+    too.  The arguments are one rank's shards, the cache's included."""
+    cfg = get_config(aid).reduced()
+    rec = dryrun.run_cell(aid, shape_name, False, out_dir=None, cfg=cfg,
+                          force_layout=layout)
+    assert rec["status"] == "ok", rec
+    model, shape = build_model(cfg), SHAPES[shape_name]
+    plan = plan_gpu(model, shape, GPU_NODE, force_layout=layout)
+    assert rec["plan"]["layout"] == plan.local_layout
+    assert rec["memory"]["argument_bytes"] == _serving_bytes(
+        model, shape, plan, GPU_NODE)
+    assert rec["memory"]["peak_per_device"] >= rec["memory"][
+        "argument_bytes"]
+    assert rec["cost"]["attention_flops"] > 0
+    coll = rec["collectives"]
+    if plan.tp_axes:
+        assert plan.local_layout.startswith("dp_tp")
+        assert coll["all-reduce"] > 0
+    else:
+        assert coll["total"] == 0
+    if shape.kind == "decode":
+        cache = model.cache_specs(shape)
+        sp = specs.cache_specs_tree(GPU_NODE, cache, plan)
+        cache_bytes = sum(_nbytes(specs.local_shape(
+            GPU_NODE, sp[k], tuple(v.shape)), v.dtype)
+            for k, v in cache.items())
+        assert rec["memory"]["argument_bytes"] > cache_bytes > 0
 
 
 def test_inapplicable_cell_is_skipped():

@@ -306,8 +306,8 @@ def test_cluster_and_membership_fingerprints_equal_the_jax_digests():
 
 
 # the multi-GPU layer with jax, repro and msgpack refused: the expert
-# all-to-all, the sharded step and the pipeline on two gloo ranks, then a
-# dry-run cell on the fake process group.  A file, so that the spawned
+# all-to-all, the sharded step, the pipeline and the tensor-parallel serving
+# steps on two gloo ranks, then dry-run cells on the fake process group.  A file, so that the spawned
 # ranks can import its worker (and refuse the same imports)
 _MULTI_WITHOUT_JAX = """
 import logging, sys, tempfile
@@ -370,9 +370,27 @@ def worker(rank, path):
         pmesh, pipeline.stage_params(gcfg, gparams, 2))
     h = pipeline.pipeline_hidden(gcfg, staged, tok, mesh=pmesh, n_stages=2,
                                  microbatches=2)
+    # tensor-parallel serving: gemma's one KV head puts the cache's
+    # sequence over "model"
+    gmodel = build_model(gcfg)
+    tplan = ShardingPlan(arch="t", shape="t", mesh=MeshDesc(
+        ("data", "model"), (1, 2)), global_mode="data", local_layout="dp_tp",
+        batch_axes=("data",), tp_axes=("model",))
+    gsp = specs.param_shardings(mesh, gparams, tplan)
+    lens = torch.tensor([16, 9], dtype=torch.int32)
+    _, cache = spmd.make_sharded_prefill(gmodel, tplan, mesh)(
+        gsp, {"tokens": tok, "lengths": lens})
+    dc = specs.cache_shardings(mesh, gmodel.init_cache(2, 32, device="cpu"),
+                               tplan)
+    logits, _ = spmd.make_sharded_decode(gmodel, tplan, mesh)(
+        gsp, dc, {"tokens": tok[:, :1], "lengths": lens})
+    logits = logits.full_tensor()
     if rank == 0:
         print("RANKS", tuple(y.shape), bool(torch.isfinite(m["loss"])),
               tuple(h.shape), "BAD", bad(), flush=True)
+        print("TP", tuple(cache["k"].to_local().shape),
+              tuple(logits.shape), bool(torch.isfinite(logits).all()),
+              flush=True)
     dist.destroy_process_group()
 
 
@@ -382,15 +400,19 @@ if __name__ == "__main__":
     from repro_torch.launch import dryrun
     ok = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
                          cfg=get_config("gemma-2b").reduced())
-    tp = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None)
-    print("DRYRUN", ok["status"], tp["status"], "BAD", bad())
+    tp = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None,
+                         cfg=get_config("gemma-2b").reduced())
+    no = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
+                         force_layout="dp_tp")
+    print("DRYRUN", ok["status"], tp["status"], no["status"], "BAD", bad())
 """
 
 
 def test_multi_gpu_layer_runs_where_jax_and_repro_cannot_import(tmp_path):
-    """``moe_ep``'s all-to-all, the sharded step and the pipeline on gloo
-    ranks, and the dry-run on the fake process group, with jax, ``repro``
-    and ``msgpack`` refused at import in every process."""
+    """``moe_ep``'s all-to-all, the sharded step, the pipeline and the
+    tensor-parallel serving steps on gloo ranks, and the dry-run on the
+    fake process group, with jax, ``repro`` and ``msgpack`` refused at
+    import in every process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT / "src")
     script = tmp_path / "multi_without_jax.py"
@@ -400,4 +422,5 @@ def test_multi_gpu_layer_runs_where_jax_and_repro_cannot_import(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "RANKS (2, 4, 64) True (2, 16, 64) BAD []" in out.stdout, \
         out.stdout
-    assert "DRYRUN ok not_ported BAD []" in out.stdout, out.stdout
+    assert "TP (2, 2, 8, 1, 16) (2, 1, 256) True" in out.stdout, out.stdout
+    assert "DRYRUN ok ok not_ported BAD []" in out.stdout, out.stdout
