@@ -71,9 +71,24 @@ each of which exits non-zero when it fails:
      (exactly 2 re-plans and 2 misses, no tx2 in the plan made while it is
      away, the greedy tokens and flash/decode launch counts of the run
      without churn, the recorder's ``engine.replan`` counters and
-     ``fleet.membership`` gauges at epochs 1 and 2), then
-     prefill-then-decode logits against the full forward and a profiler
-     window over decode steps (device-busy share);
+     ``fleet.membership`` gauges at epochs 1 and 2), then the paper's
+     evaluation layer over these runs (``evaluation_phase``, on the
+     host): the churn run's recorder flushed into the port's ``RunStore``
+     (a fresh store reads the same canonical lines; ``engine.*`` spans;
+     ``report.generate`` and the report CLI exit 0); the counted run's
+     launch counts (gated) and decode step (informational) as a regress
+     snapshot (the CLI's self-diff exits 0, the flash count doubled
+     exits 1); the four ``STRATEGIES`` on the simulator for every
+     ``EDGE_MODELS`` entry on ``paper_cluster()`` (HiDP lowest in latency
+     and energy; simulated seconds of the cost model, not card
+     measurements) and on one H100 priced by the card-calibrated provider
+     for gemma-2b's decode step; open-loop load through
+     ``OpenLoopHarness`` priced by the calibrated ``PlanCache`` (every
+     arrival in one terminal state, one plan resolution per tenant, each
+     ``load.request`` critical path summing to its latency) and a
+     saturation sweep priced at the counted run's measured seconds a
+     request; then prefill-then-decode logits against the full forward
+     and a profiler window over decode steps (device-busy share);
    - mamba2-780m, all 48 layers, 8 requests: the SSD kernel and no
      attention kernel, then prefill-then-decode against the full forward
      and profiler windows over decode steps and over one prefill;
@@ -220,15 +235,19 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
-from repro_torch.core import (ANALYTIC, Cluster, HiDPPlanner,  # noqa: E402
+from repro_torch.core import (ANALYTIC, EDGE_MODELS,  # noqa: E402
+                              MODEL_DELTA, STRATEGIES, Cluster, HiDPPlanner,
                               PlannerConfig, battery_cluster, gpu_node,
                               node_as_resource, paper_cluster, plan_to_dict,
-                              processors_as_resources)
+                              processors_as_resources, simulate)
 from repro_torch.fleet import ChurnTrace, FleetController  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.load import (ArrivalTrace, FixedServiceModel,  # noqa: E402
+                              LoadConfig, OpenLoopHarness, PlanServiceModel,
+                              TenantSpec, mix_capacity, saturation_sweep)
 from repro_torch.models import ShapeConfig, build_model  # noqa: E402
 from repro_torch.models import SHAPES as CELLS  # noqa: E402
 from repro_torch.models import shape_applicable  # noqa: E402
@@ -244,7 +263,8 @@ from repro_torch.serving.plan_cache import PlanCache  # noqa: E402
 from repro_torch.sharding.plan import (GPU_MULTI_NODE, GPU_NODE,  # noqa: E402
                                        H100, MeshDesc, ShardingPlan,
                                        plan_gpu)
-from repro_torch.telemetry import TelemetryRecorder  # noqa: E402
+from repro_torch.telemetry import (RunStore, TelemetryRecorder,  # noqa: E402
+                                   regress, report, trace)
 from repro_torch.training import checkpoint as train_ckpt  # noqa: E402
 from repro_torch.training import optimizer as train_optim  # noqa: E402
 from repro_torch.training import train_loop  # noqa: E402
@@ -1408,7 +1428,235 @@ def serve_churn(model, params, prompts, run, smi: str) -> dict:
         f"{epoch_s[1] * 1e3:.3f} ms; recorder {len(rec.events)} events, "
         f"engine.replan {replans}, fleet.membership {members} [{smi}]")
     return dict(wall=wall, launches=launches, submit_s=submit_s,
-                epoch_s=epoch_s)
+                epoch_s=epoch_s, rec=rec)
+
+
+# the paper's evaluation layer on the card's runs (after ``serve_churn``)
+THROUGHPUT_STREAM = 16        # requests 0.2 s apart, fig7's spacing
+LOAD_SEED, LOAD_ARRIVALS = 0, 2000
+SWEEP_FACTORS = (0.5, 0.9, 1.0, 1.5, 3.0)
+
+
+def _cli(module: str, *args) -> subprocess.CompletedProcess:
+    """``python -m module args`` with the checkout's ``src`` on the path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent / "src")
+    return subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def telemetry_of_churn(rec, store: RunStore, smi: str) -> None:
+    """(a) The churn run's recorder flushed into the port's ``RunStore``: a
+    fresh store on the same root reads the same canonical lines, the report
+    (in process and through its CLI) succeeds, and the run holds ``engine.*``
+    spans."""
+    n = rec.close(store=store, card=smi, model="gemma-2b")
+    lines = store.canonical_lines(rec.run)
+    if not lines or RunStore(store.root).canonical_lines(rec.run) != lines:
+        raise AssertionError(f"run {rec.run}: {len(lines)} canonical lines, "
+                             "read back otherwise by a fresh store")
+    spans = store.events(rec.run, kind="span", name="engine.*")
+    if not spans:
+        raise AssertionError(f"run {rec.run} holds no engine.* span")
+    text = report.generate(store, rec.run)
+    cli = _cli("repro_torch.telemetry.report", store.root, rec.run)
+    if cli.returncode != 0 or f"run {rec.run}" not in cli.stdout:
+        raise AssertionError(f"the report CLI exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    tree = trace.tree_lines(trace.span_trees(store.events(rec.run)))
+    summary = report.run_summary(store, rec.run)
+    log(f"telemetry: churn run {rec.run!r}, {n} events flushed into a "
+        f"RunStore, {len(lines)} canonical lines read back equal by a fresh "
+        f"store; {len(spans)} engine.* spans "
+        f"({sorted({e.name for e in spans})}); {len(tree)} span-tree lines; "
+        f"report {len(text.splitlines())} lines, CLI exit 0 [{smi}]")
+    log("telemetry run summary: " + json.dumps(summary, sort_keys=True,
+                                               default=str))
+
+
+def regress_on_card(run, root: Path, smi: str) -> None:
+    """(b) The counted run's launches (unit ``count``, gated) and decode
+    step (unit ``us``, informational) as a snapshot: the regress CLI's
+    self-diff exits 0, and a copy with the flash count doubled exits 1."""
+    eng = run["eng"]
+    metrics = {f"gemma-2b/launches/{k}": {"value": float(v), "unit": "count",
+                                          "direction": "lower"}
+               for k, v in run["launches"].items()}
+    metrics["gemma-2b/decode_step"] = {
+        "value": 1e6 * statistics.median(eng.decode_seconds), "unit": "us",
+        "direction": "lower"}
+    base = regress.write_snapshot(root / "base.json", metrics, ["chip_smoke"])
+    doubled = {k: dict(v) for k, v in metrics.items()}
+    doubled["gemma-2b/launches/flash_attention"]["value"] *= 2
+    cur = regress.write_snapshot(root / "doubled.json", doubled,
+                                 ["chip_smoke"])
+    rcs = [_cli("repro_torch.telemetry.regress", base, other).returncode
+           for other in (base, cur)]
+    entries = regress.diff(regress.load_snapshot(base),
+                           regress.load_snapshot(cur)).regressions
+    if rcs != [0, 1] or [e.name for e in entries] != [
+            "gemma-2b/launches/flash_attention"]:
+        raise AssertionError(f"regress CLI exits {rcs} (self, doubled), "
+                             f"regressions {[e.name for e in entries]}")
+    log(f"regress: snapshot of {len(metrics)} metrics (launches "
+        f"{dict(run['launches'])} gated, decode step "
+        f"{metrics['gemma-2b/decode_step']['value']:.1f} us informational); "
+        f"CLI self-diff exit {rcs[0]}, flash count doubled exit {rcs[1]} "
+        f"[{smi}]")
+
+
+def paper_comparison(plan, run, smi: str) -> None:
+    """(c) The paper's §IV-A comparison through the port's simulator, in
+    simulated seconds of the cost model (not card measurements): the four
+    ``STRATEGIES`` on ``paper_cluster()`` for every ``EDGE_MODELS`` entry,
+    HiDP lowest in latency and energy for each; then the four priced by the
+    card-calibrated provider on one H100 for gemma-2b's decode step."""
+    out = {}
+    for name, build in EDGE_MODELS.items():
+        dag, delta = build(), MODEL_DELTA[name]
+        row = {}
+        for s in STRATEGIES:
+            one = simulate(paper_cluster(), s, [(0.0, dag, delta)],
+                           planning_time=0.0)
+            stream = simulate(paper_cluster(), s,
+                              [(0.2 * i, dag, delta)
+                               for i in range(THROUGHPUT_STREAM)],
+                              planning_time=0.0)
+            row[s] = (one.records[0].latency, one.energies()[name],
+                      THROUGHPUT_STREAM / stream.makespan())
+        for i, what in ((0, "latency"), (1, "energy")):
+            best = min(row, key=lambda s: row[s][i])
+            if best != "hidp":
+                raise AssertionError(f"{name}: {best} has the lowest "
+                                     f"simulated {what}, not hidp: {row}")
+        h = row["hidp"]
+        log(f"simulated (cost model, paper_cluster) {name}: hidp latency "
+            f"{h[0]:.4f} s, energy {h[1]:.4f} J, throughput {h[2]:.4f} "
+            "inferences/s; " + "; ".join(
+                f"{s} {row[s][0]:.4f} s, {row[s][1]:.4f} J, "
+                f"{row[s][2]:.4f}/s" for s in STRATEGIES if s != "hidp"))
+        out[name] = row
+    pairs = [(row["hidp"], row[s]) for row in out.values()
+             for s in STRATEGIES if s != "hidp"]
+    gain = [statistics.mean(1 - h[i] / b[i] for h, b in pairs)
+            for i in (0, 1)] + [statistics.mean(h[2] / b[2] - 1
+                                                for h, b in pairs)]
+    log(f"simulated (cost model): hidp against the three baselines, mean "
+        f"over {len(out)} models: latency {gain[0]:.1%} lower, energy "
+        f"{gain[1]:.1%} lower, throughput ({THROUGHPUT_STREAM} requests "
+        f"0.2 s apart) {gain[2]:.1%} higher (the paper reports 38%, 46% "
+        "and 56%)")
+    cluster = Cluster((gpu_node("h100"),))
+    provider = CalibratedCostProvider(plan["loaded"])
+    step = 1e3 * statistics.median(run["eng"].decode_seconds)
+    for s in STRATEGIES:
+        r = simulate(cluster, s, [(0.0, plan["dag"], 1.0)],
+                     provider=provider, planning_time=0.0).records[0]
+        log(f"simulated (cost model, one H100, card-calibrated provider) "
+            f"gemma-2b decode step under {s}: {r.mode}-mode, planned "
+            f"{1e3 * r.predicted_latency:.4f} ms and "
+            f"{r.predicted_energy:.4g} J, executed on the datasheet model "
+            f"{1e3 * r.latency:.4f} ms; the engine's measured median decode "
+            f"step {step:.4f} ms [{smi}]")
+
+
+def open_loop_load(plan, run, model, store: RunStore, smi: str) -> None:
+    """(d) Open-loop load priced by the card: a seeded Poisson trace of
+    gemma-2b decode steps and prefills through ``OpenLoopHarness`` with a
+    ``PlanServiceModel`` over the calibrated plan cache, recorded into the
+    ``RunStore``; then a saturation sweep of whole requests priced at the
+    counted run's measured seconds a request (``FixedServiceModel``, one
+    lane per engine slot)."""
+    prefill = model.block_costs(ShapeConfig("serve", 512, 1, "prefill"))
+    specs = {"decode": TenantSpec("decode", dag=plan["dag"], delta=1.0),
+             "prefill": TenantSpec("prefill", dag=prefill, delta=1.0)}
+    svc = PlanServiceModel(plan["cache"], specs)
+    times = {k: svc.service_time(k) for k in specs}
+    primed = svc.resolutions
+    mix = {"decode": 4.0, "prefill": 1.0}
+    cap = mix_capacity(times, mix)
+    rates = {k: 0.8 * cap * w / sum(mix.values()) for k, w in mix.items()}
+    horizon = LOAD_ARRIVALS / sum(rates.values())
+    # each SLO: the tenant's own service and four of the longest ahead
+    longest = max(times.values())
+    specs = {k: dataclasses.replace(v, slo=times[k] + 4 * longest)
+             for k, v in specs.items()}
+    tr = ArrivalTrace.poisson(rates, horizon, seed=LOAD_SEED)
+    rec = TelemetryRecorder(store.new_run("load"), store=store)
+    h = OpenLoopHarness(tr, specs, svc, LoadConfig(queue_capacity=64),
+                        telemetry=rec)
+    rep = h.run()
+    rec.close(card=smi)
+    # every arrival ends completed, rejected or shed, exactly once
+    if not (rep.conservation_ok() and rep.completed + rep.rejected
+            + rep.shed == rep.arrived == len(tr)):
+        raise AssertionError(f"open-loop run: {rep}")
+    resolved = svc.resolutions - primed
+    if resolved != len(specs):
+        raise AssertionError(f"{resolved} plan resolutions for "
+                             f"{len(specs)} tenants with no churn")
+    paths = trace.request_critical_paths(store, rec.run)
+    worst = max((abs(p.residual) for p in paths), default=0.0)
+    if len(paths) != rep.completed or worst > 1e-9:
+        raise AssertionError(f"{len(paths)} load.request critical paths "
+                             f"for {rep.completed} completions, largest "
+                             f"residual {worst:.3e} s")
+    steps_s = 1.0 / statistics.median(run["eng"].decode_seconds)
+    log(f"open-loop load (plan-priced, calibrated cache): {len(tr)} "
+        f"arrivals over {horizon:.3f} simulated s at 0.8 of capacity "
+        f"{cap:.2f}/s (service decode {1e3 * times['decode']:.4f} ms, "
+        f"prefill {1e3 * times['prefill']:.4f} ms as planned); completed "
+        f"{rep.completed}, rejected {rep.rejected}, shed {rep.shed}, p50 "
+        f"{1e3 * rep.percentile(50):.4f} ms, p99 "
+        f"{1e3 * rep.percentile(99):.4f} ms, utilization "
+        f"{rep.utilization():.4f}; {resolved} plan resolutions; "
+        f"{len(paths)} critical paths, largest residual {worst:.3e} s; "
+        f"planned decode steps {1 / times['decode']:.2f}/s beside the "
+        f"engine's measured {steps_s:.2f}/s [{smi}]")
+
+    n = len(run["rids"])
+    per_request = run["wall"] * MAX_BATCH / n      # one lane's seconds
+    fixed = FixedServiceModel({"gemma-2b": per_request})
+    measured = n / run["wall"]
+    cap = mix_capacity({"gemma-2b": per_request}, {"gemma-2b": 1.0},
+                       servers=MAX_BATCH)
+    base = ArrivalTrace.poisson({"gemma-2b": measured}, 200 / measured,
+                                seed=LOAD_SEED + 1)
+    rec = TelemetryRecorder(store.new_run("sweep"), store=store)
+    points = saturation_sweep(
+        base, [TenantSpec("gemma-2b", slo=4 * per_request)], fixed,
+        SWEEP_FACTORS, LoadConfig(servers=MAX_BATCH, queue_capacity=16),
+        telemetry=rec)
+    rec.close(card=smi)
+    for p in points:
+        r = p.report
+        if not (r.conservation_ok() and r.utilization() <= 1 + 1e-9):
+            raise AssertionError(f"sweep at {p.factor}x: {r}")
+        log(f"  saturation {p.factor:.2f}x: offered {p.offered:.4f}/s, "
+            f"throughput {p.throughput:.4f}/s, goodput {p.goodput:.4f}/s, "
+            f"p50 {p.p50:.3f} s, p99 {p.p99:.3f} s, loss "
+            f"{p.loss_rate:.4f}")
+    log(f"saturation sweep priced by the card: {n} requests in "
+        f"{run['wall']:.3f} s on {MAX_BATCH} engine slots = "
+        f"{per_request:.4f} s a request a slot; mix_capacity "
+        f"{cap:.4f} requests/s beside the engine's measured {measured:.4f} "
+        f"requests/s; plateau {points[-1].throughput:.4f}/s at "
+        f"{SWEEP_FACTORS[-1]}x [{smi}]")
+
+
+def evaluation_phase(model, run, churn, plan, smi: str) -> None:
+    """The paper's evaluation layer over the card's runs: (a) telemetry of
+    the churn run, (b) regress on the counted run, (c) the strategy
+    comparison on the simulator, (d) open-loop load priced by the card."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = RunStore(Path(tmp) / "telemetry")
+        telemetry_of_churn(churn["rec"], store, smi)
+        regress_on_card(run, Path(tmp), smi)
+        paper_comparison(plan, run, smi)
+        open_loop_load(plan, run, model, store, smi)
+    log(f"evaluation phase: {time.perf_counter() - t0:.3f} s host [{smi}]")
 
 
 def plan_elastic(smi: str) -> None:
@@ -3728,7 +3976,8 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     cfg, model, params, prompts, run = serve(
         "gemma-2b", N_REQUESTS, ("flash_attention", "decode_attention"), smi)
     serve_planned(model, params, prompts, run, plan, smi)
-    serve_churn(model, params, prompts, run, smi)
+    churn = serve_churn(model, params, prompts, run, smi)
+    evaluation_phase(model, run, churn, plan, smi)
     err = check_prefill_then_decode(model, params, cfg, PTD_LIMIT[cfg.name])
     log(f"prefill-then-decode vs full forward (B=2, P=255): max|err| "
         f"{err:.3e} within {PTD_LIMIT[cfg.name]}")

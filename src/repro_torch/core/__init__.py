@@ -1,10 +1,10 @@
-"""The port's copy of ``repro.core``, the paper's hardware-agnostic planner,
-as far as the serving and analyzer loop needs it: the cost model, block DAGs,
-objectives, fingerprints, the frontier DP at both tiers and the two-tier
-HiDP planner, the cluster manager (heartbeats, availability, leader
-election), the paper's edge-model zoo and Table II boards, plus the
-scheduler FSM states.  The baselines and simulator are not ported yet
-(``ROADMAP.md``)."""
+"""The port's copy of ``repro.core``, the paper's hardware-agnostic planner:
+the cost model, block DAGs, objectives, fingerprints, the frontier DP at
+both tiers and the two-tier HiDP planner, the cluster manager (heartbeats,
+availability, leader election), the paper's edge-model zoo and Table II
+boards, the leader/follower scheduler FSMs (Fig. 4), the §IV-A baselines
+(``STRATEGIES`` / ``STRATEGY_FRONTS``) and the event-driven edge simulator
+(``EdgeSimulator`` / ``simulate``)."""
 
 from .cost_model import (ANALYTIC, AnalyticCostProvider,  # noqa: F401
                          Cluster, CostProvider, Node, Processor, Resource,
@@ -26,7 +26,9 @@ from .local_partitioner import (LocalPlan, p1_plan, plan_local,  # noqa: F401
                                 plan_local_front)
 from .hidp import (HiDPPlan, HiDPPlanner, PlannerConfig, plan,  # noqa: F401
                    plan_from_dict, plan_front, plan_to_dict, sub_dag_for)
-from .scheduler import State  # noqa: F401
+from .baselines import STRATEGIES, STRATEGY_FRONTS  # noqa: F401
+from .scheduler import FollowerFSM, InferenceRequest, LeaderFSM, State  # noqa: F401
 from .cluster import ClusterManager, HeartbeatMonitor  # noqa: F401
+from .simulator import EdgeSimulator, SimReport, SimRequest, simulate  # noqa: F401
 from .edge_models import (EDGE_MODELS, MODEL_DELTA,  # noqa: F401
                           battery_cluster, paper_cluster)

@@ -25,18 +25,19 @@ seq is unknowable at child-emission time), and every event emitted while
 a context is open is auto-parented under it.  Subsystems that cannot
 nest their control flow (the open-loop harness's event loop) allocate
 ids explicitly with :meth:`allocate_span` and pass ``span_id=`` /
-``parent_id=`` themselves.  The JAX package's
-``repro.telemetry.trace`` rebuilds the trees.
+``parent_id=`` themselves.  :mod:`repro_torch.telemetry.trace` rebuilds
+the trees.
 
 Lifecycle::
 
-    tel = TelemetryRecorder("churn", store=store)
-    ... thread tel through PlanCache / FleetController / ServingEngine ...
+    store = RunStore("artifacts/telemetry")
+    tel = TelemetryRecorder(store.new_run("churn"), store=store)
+    ... thread tel through EdgeSimulator / PlanCache / FleetController ...
     tel.close(cluster_fingerprint=...)     # flush events + write manifest
 
 ``store`` is any object with ``append(run, events)`` and
-``write_manifest(run, manifest)`` (the JAX package's ``RunStore`` fits); the
-port has no store of its own yet and imports none.
+``write_manifest(run, manifest)``: the port's
+:class:`~repro_torch.telemetry.store.RunStore` or the JAX package's.
 
 ``flush_every=N`` bounds the in-memory buffer for long runs; ``close``
 always flushes the tail and stamps the manifest with per-kind counts.

@@ -5,18 +5,20 @@ same stdlib inputs, by exact equality.
 
 The behavioural cases of ``tests/test_cluster.py``, ``tests/test_fleet.py``
 and ``tests/test_telemetry.py`` run here on the port's classes: each test
-function is called with its module's names rebound to the port's (``_on``),
-so the cases are the same code, not copies of it.
+module is re-executed with ``repro`` resolved to ``repro_torch``
+(``_port_alias.on_port``), so the cases are the same code, not copies of
+it.
 """
 
 import dataclasses
-import types
+import sys
 
 import pytest
 
 import test_cluster as cluster_cases
 import test_fleet as fleet_cases
 import test_telemetry as telemetry_cases
+from _port_alias import call_case, on_port
 from repro import fleet as jfleet
 from repro import telemetry as jtelemetry
 from repro.core import cluster as jcluster
@@ -29,40 +31,14 @@ from repro_torch.core import cluster, edge_models
 from repro_torch.core.fingerprint import (cluster_fingerprint, dag_fingerprint,
                                           membership_fingerprint)
 
-# the port's names for everything the rebound cases look up
-PORT_NAMES = dict(
-    ClusterManager=cluster.ClusterManager,
-    HeartbeatMonitor=cluster.HeartbeatMonitor,
-    paper_cluster=edge_models.paper_cluster,
-    EDGE_MODELS=edge_models.EDGE_MODELS, MODEL_DELTA=edge_models.MODEL_DELTA,
-    membership_fingerprint=membership_fingerprint,
-    ChurnEvent=fleet.ChurnEvent, ChurnTrace=fleet.ChurnTrace,
-    DOWN_KINDS=fleet.DOWN_KINDS, UP_KINDS=fleet.UP_KINDS,
-    FleetController=fleet.FleetController,
-    TelemetryEvent=telemetry.TelemetryEvent,
-    TelemetryRecorder=telemetry.TelemetryRecorder, KINDS=telemetry.KINDS,
-    WALL_FIELDS=telemetry.WALL_FIELDS, active=telemetry.active)
 
-
-def _on(fn, package: str, keep=()):
-    """``fn`` itself for ``"repro"``; for ``"repro_torch"`` the same code
-    with its module's globals rebound to the port's names.  Fails if the
-    code would still reach a name of ``repro`` other than those in
-    ``keep``."""
+def _on(fn, package: str):
+    """``fn`` itself for ``"repro"``; for ``"repro_torch"`` the same case
+    of its module re-executed with ``repro`` resolved to the port
+    (``on_port``)."""
     if package == "repro":
         return fn
-    g = dict(fn.__globals__)
-    g.update(PORT_NAMES)
-    codes, names = [fn.__code__], set()
-    while codes:                                  # nested defs and lambdas
-        code = codes.pop()
-        names.update(code.co_names)
-        codes += [c for c in code.co_consts if isinstance(c, types.CodeType)]
-    left = sorted(n for n in names - set(keep) if n in g and getattr(
-        g[n], "__module__", "").split(".")[0] == "repro")
-    assert not left, f"{fn.__name__} would still reach repro's {left}"
-    return types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__,
-                              fn.__closure__)
+    return getattr(on_port(sys.modules[fn.__module__]), fn.__name__)
 
 
 def _cases(module, names):
@@ -271,10 +247,8 @@ TELEMETRY_CASES = _cases(telemetry_cases, (
 
 @pytest.mark.parametrize("case", TELEMETRY_CASES)
 def test_telemetry_cases_on_the_port(case, tmp_path):
-    """The recorder flushes into the JAX package's ``RunStore``: the port
-    takes its store as an object."""
-    fn = _on(case, "repro_torch", keep=("RunStore",))
-    fn(tmp_path) if fn.__code__.co_argcount else fn()
+    """The recorder flushes into the port's ``RunStore``."""
+    call_case(_on(case, "repro_torch"), tmp_path=tmp_path)
 
 
 class _ListStore:

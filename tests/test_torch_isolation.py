@@ -36,7 +36,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if n.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
 ours = sorted(n for n in sys.modules if n.startswith("repro_torch"))
 print("LOADED", len(ours))
 print("BAD", bad)
@@ -60,6 +60,12 @@ TRAINING_MODULES = [f"repro_torch.{m}" for m in (
     "training.optimizer", "training.train_loop", "training.checkpoint",
     "training._msgpack", "training.data", "training.tree",
     "runtime.fault_tolerance", "launch.train")]
+# the paper's evaluation layer: baselines, simulator, FSMs, load, telemetry
+EVAL_MODULES = [f"repro_torch.{m}" for m in (
+    "core.baselines", "core.simulator", "core.scheduler", "load",
+    "load.traces", "load.service", "load.harness", "load.saturation",
+    "telemetry.store", "telemetry.trace", "telemetry.report",
+    "telemetry.regress")]
 # the kernel wrappers, their plain versions and `_build`
 KERNEL_MODULES = [f"repro_torch.kernels.{m}" for m in (
     "_build", "_wrap", "ops", "ref", "flash_attention", "decode_attention",
@@ -77,7 +83,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert int(out.stdout.split("LOADED")[1].split()[0]) >= 50
     loaded = set(out.stdout.split("NAMES")[1].split())
     for mods in (PLANNER_MODULES, FLEET_MODULES, TRAINING_MODULES,
-                 KERNEL_MODULES):
+                 KERNEL_MODULES, EVAL_MODULES):
         assert set(mods) <= loaded, set(mods) - loaded
 
 
@@ -130,6 +136,71 @@ def test_gpu_planning_and_fleet_run_where_jax_and_repro_cannot_import():
     assert out.returncode == 0, out.stderr
     assert "WORLDS 1 2 2 6" in out.stdout, out.stdout
     assert "NODE dp_tp" in out.stdout and "BAD []" in out.stdout, out.stdout
+
+
+# the evaluation layer with jax, repro and benchmarks refused: the paper's
+# strategy comparison on the simulator, an open-loop load run and a
+# saturation sweep priced by the plan cache, the store, report and regress
+_EVAL_WITHOUT_JAX = """
+import sys, tempfile
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
+            raise ImportError(f"refused: {name}")
+
+
+sys.meta_path.insert(0, Refuse())
+from repro_torch.core import (EDGE_MODELS, MODEL_DELTA, STRATEGIES,
+                              HiDPPlanner, paper_cluster, simulate)
+from repro_torch.load import (ArrivalTrace, LoadConfig, OpenLoopHarness,
+                              PlanServiceModel, TenantSpec, saturation_sweep)
+from repro_torch.serving import PlanCache
+from repro_torch.telemetry import RunStore, TelemetryRecorder, regress
+from repro_torch.telemetry import report
+
+wins = 0
+for name in EDGE_MODELS:
+    lat = {s: simulate(paper_cluster(), s, [(0.0, EDGE_MODELS[name](),
+                                             MODEL_DELTA[name])],
+                       planning_time=0.0).records[0].latency
+           for s in STRATEGIES}
+    wins += min(lat, key=lat.get) == "hidp"
+root = tempfile.mkdtemp()
+store = RunStore(root)
+rec = TelemetryRecorder(store.new_run("load"), store=store)
+spec = TenantSpec("resnet", slo=5.0, dag=EDGE_MODELS["resnet152"](),
+                  delta=MODEL_DELTA["resnet152"])
+svc = PlanServiceModel(PlanCache(HiDPPlanner(), paper_cluster()),
+                       {"resnet": spec})
+tr = ArrivalTrace.poisson({"resnet": 2.0}, horizon=10.0, seed=1)
+rep = OpenLoopHarness(tr, [spec], svc, LoadConfig(queue_capacity=8),
+                      telemetry=rec).run()
+pts = saturation_sweep(tr, [spec], svc, [0.5, 2.0])
+rec.close()
+snap = regress.write_snapshot(root + "/s.json", {"n": {
+    "value": float(rep.completed), "unit": "count", "direction": "lower"}})
+print("EVAL", wins, len(EDGE_MODELS), rep.conservation_ok(),
+      svc.resolutions, len(pts), report.main([root]),
+      regress.main([str(snap), str(snap)]))
+print("BAD", sorted(n for n in sys.modules
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                           "benchmarks")))
+"""
+
+
+def test_evaluation_layer_runs_where_jax_repro_and_benchmarks_cannot_import():
+    """The baselines, simulator, load harness, run store, report and
+    regress run with jax, ``repro`` and ``benchmarks`` refused at
+    import."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _EVAL_WITHOUT_JAX], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "EVAL 4 4 True 3 2 0 0" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
 
 
 # the GPU plan explorer example, run as a script with jax and repro refused

@@ -523,6 +523,61 @@ def test_chip_smokes_churn_phase_runs_on_the_cpu(small_lm, monkeypatch):
     assert len(out["epoch_s"]) == 2 and len(out["submit_s"]) == 8
 
 
+def test_chip_smokes_evaluation_phase_runs_on_the_cpu(small_lm, monkeypatch,
+                                                      capsys):
+    """``chip_smoke.evaluation_phase`` on the CPU at the reduced size: the
+    churn run's telemetry through the port's store, report and regress
+    (their CLIs as subprocesses), the simulated strategy comparison, and
+    open-loop load priced by a plan cache calibrated on the CPU's plain
+    kernels; it raises on any failed check."""
+    import functools
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    from repro_torch.core import (Cluster, HiDPPlanner, PlannerConfig,
+                                  gpu_node, processors_as_resources)
+    from repro_torch.models import ShapeConfig
+    from repro_torch.profiling import (CalibratedCostProvider,
+                                       LearnedCostModel, Profiler)
+    from repro_torch.serving.plan_cache import PlanCache
+
+    cfg, model, params = small_lm
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "ServingEngine", functools.partial(
+        ServingEngine, device="cpu"))
+    monkeypatch.setattr(chip_smoke, "MAX_LEN", 64)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(4, 20, size=8)]
+    run = chip_smoke.drive_main_path(model, params, prompts)
+    churn = chip_smoke.serve_churn(model, params, prompts, run, "cpu")
+    node = gpu_node("h100")
+    gpu = processors_as_resources(node)[0]
+    samples = Profiler(warmup=0, repeats=1, trim=0).profile_kernels(
+        device="cpu", key=gpu.profile_key or gpu.name,
+        shapes={"attn": ((1, 32, 2, 16), (1, 64, 2, 16)),
+                "decode": ((1, 32, 2, 16), (2, 64, 2, 16)),
+                "ssd": ((1, 32, 2, 16, 8), (1, 64, 2, 16, 8))})
+    loaded = LearnedCostModel.fit(samples)
+    plan = dict(loaded=loaded, dag=model.block_costs(
+        ShapeConfig("serve", 64, 4, "decode")), cache=PlanCache(
+            HiDPPlanner(PlannerConfig(
+                provider=CalibratedCostProvider(loaded))),
+            Cluster((node,))))
+    # the plain versions count no launch on the CPU: stand in the card's
+    # counts, which the regress check doubles
+    run = dict(run, launches={"flash_attention": 36, "decode_attention": 18,
+                              "ssd_intra_chunk": 0})
+    capsys.readouterr()
+    chip_smoke.evaluation_phase(model, run, churn, plan, "cpu")
+    out = capsys.readouterr().out
+    for what in ("telemetry: churn run", "regress: snapshot",
+                 "simulated (cost model, one H100", "open-loop load",
+                 "saturation sweep priced", "evaluation phase:"):
+        assert what in out, what
+    assert out.count("simulated (cost model, paper_cluster)") == 4
+
+
 def test_serve_cli_runs_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
