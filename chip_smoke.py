@@ -174,9 +174,12 @@ each of which exits non-zero when it fails:
    (``sharding.spmd``) under ``P1_pure_dp`` and ``fsdp_all`` from one
    seed: losses at rtol 2e-3 and parameters at atol 3e-3 (the reference's
    tolerances), exactly 36 forward and 18 backward flash calls a step,
-   step ms, peak GiB and busy share each; qwen3-moe-30b-a3b at full width
-   and 3 of 48 layers, 5 sharded steps under ``dp_sp_fsdp_ep`` and
-   ``dp_sp_fsdp_ep_q8`` against the in-process ``"ep_a2a"`` and
+   step ms, peak GiB and busy share each; the same under the
+   tensor-parallel ``dp_tp`` and ``dp_tp_fsdp`` (at world 1 no activation
+   crosses: their cost over the others is DTensor's and the host's);
+   qwen3-moe-30b-a3b at full width and 3 of 48 layers, 5 sharded steps
+   under ``dp_sp_fsdp_ep``, ``dp_sp_fsdp_ep_q8``, ``dp_tp_ep`` and
+   ``dp_tp_ep_q8`` against the in-process ``"ep_a2a"`` and
    ``"ep_a2a_q8"`` runs above; the GPipe pipeline at world 1 against the
    flat stack (gemma-2b at full width, 2 layers) and one pipelined step's
    loss; flash forward and backward at one rank's share of an 8-way
@@ -185,7 +188,8 @@ each of which exits non-zero when it fails:
    dry-run's host processes, started before the training slice (beside
    the host-bound serving paths they would slow them) and read after the
    times of phase 5: gemma-2b's two world-1 cells' predicted peak beside
-   the measured one, and ``train_4k`` of every arch on both GPU meshes,
+   the measured one (the four of ``DENSE_LAYOUTS``), and ``train_4k`` of
+   every arch on both GPU meshes,
    one line a cell beside the planner's predicted resident GiB and
    collective ms;
 8. (run after the multi-GPU phase) tensor-parallel serving: the decode
@@ -204,9 +208,21 @@ each of which exits non-zero when it fails:
    cell; then world 2 on the one card (two processes over gloo, full
    width, 2 layers), where gemma's one KV head puts the cache's sequence
    over ``model``: logits within 1e-1 of the unsharded steps', 16 merges.
+9. tensor-parallel training at world 2 on the one card (two processes
+   over gloo on a (1, 2) mesh): gemma-2b and mamba2-780m at full width
+   and 2 layers, B=2 x T=1024, 2 ``dp_tp`` steps against 2 unsharded
+   steps on each rank: losses at rtol 2e-3, the first clip norm at 1e-2
+   (bf16 partial sums across ranks), each rank's shards of the final
+   parameters at atol 2 x 3e-3, and exactly the unsharded step's launches
+   a step on each rank (gemma: every rank runs all heads through its one
+   KV head; mamba2: the SSD pass on 24 of 48 heads).
    The dry-run's serving cells (``decode_32k`` of every arch on
    ``GPU_NODE``, mistral-large-123b's ``prefill_32k``) start after it and
-   must trace ``ok``.
+   must trace ``ok``; so must its tensor-parallel training cells
+   (``train_4k`` of every arch under a forced ``dp_tp``, and ``dp_tp_ep``
+   for the MoE archs, each beside the planner's resident estimate),
+   traced in four host processes at the lowest priority from right after
+   the build (about 1250 s of host time in all).
 
 The last two lines are the ``{"kernels": [...]}`` record (five kernels,
 and the merge's entry point) and
@@ -2876,10 +2892,25 @@ def train_phases(smi: str) -> dict:
 # --------------------------------------------------------------------------
 
 # the GPU planner's training layouts at world 1 on a (1, 1) ("data",
-# "model") mesh: (layout, its axes); the MoE ones also name their lowering
+# "model") mesh; the MoE ones also name their lowering.  The tensor-parallel
+# ones (``dp_tp*``) run every crossing's code over groups of one rank: no
+# activation crosses (a split of width 1 is no split), so they measure the
+# DTensor and host cost
 WORLD_ONE = MeshDesc(("data", "model"), (1, 1))
-DENSE_LAYOUTS = ("P1_pure_dp", "fsdp_all")
-EP_LAYOUTS = (("dp_sp_fsdp_ep", "ep_a2a"), ("dp_sp_fsdp_ep_q8", "ep_a2a_q8"))
+DENSE_LAYOUTS = ("P1_pure_dp", "fsdp_all", "dp_tp", "dp_tp_fsdp")
+EP_LAYOUTS = (("dp_sp_fsdp_ep", "ep_a2a"), ("dp_sp_fsdp_ep_q8", "ep_a2a_q8"),
+              ("dp_tp_ep", "ep_a2a"), ("dp_tp_ep_q8", "ep_a2a_q8"))
+_SP_EP = dict(batch_axes=("data",), seq_axes=("model",),
+              fsdp_axes=("data", "model"))
+_TP = dict(batch_axes=("data",), tp_axes=("model",))
+# each layout's axes ("unsharded": none, for ``make_train_step``)
+LAYOUT_AXES = {"unsharded": dict(batch_axes=()),
+               "P1_pure_dp": dict(batch_axes=("data", "model")),
+               "fsdp_all": dict(batch_axes=("data", "model"),
+                                fsdp_axes=("data", "model")),
+               "dp_sp_fsdp_ep": _SP_EP, "dp_sp_fsdp_ep_q8": _SP_EP,
+               "dp_tp": _TP, "dp_tp_ep": _TP, "dp_tp_ep_q8": _TP,
+               "dp_tp_fsdp": dict(_TP, fsdp_axes=("data",))}
 # qwen3-moe-30b-a3b's sharded steps at the MoE training cells' depth
 QWEN3_SHARDED_LAYERS = QWEN3_TRAIN_LAYERS
 # one full-width qwen3 MoE layer through the all-to-all path: B x T tokens
@@ -2901,6 +2932,19 @@ DRYRUN_SPLIT = (("mistral-large-123b", "mamba2-780m", "hymba-1.5b", "gemma-2b",
                  "whisper-tiny", "gemma3-1b"),
                 ("qwen3-moe-30b-a3b", "mixtral-8x7b", "llama-3.2-vision-11b",
                  "minicpm-2b"))
+# the dry-run's tensor-parallel training cells: ``DRYRUN_SHAPE`` of every
+# arch under a forced ``dp_tp`` on GPU_NODE, and ``dp_tp_ep`` for the MoE
+# archs, in four host processes of about equal trace time (alone on the
+# card's host: 323-354 s each but gemma-2b's group, 217 s; the plans
+# accumulate up to 8 microbatches, each traced)
+DRYRUN_TP_SPLIT = (
+    (("mamba2-780m", "dp_tp"), ("mistral-large-123b", "dp_tp")),
+    (("hymba-1.5b", "dp_tp"), ("qwen3-moe-30b-a3b", "dp_tp"),
+     ("whisper-tiny", "dp_tp"), ("gemma3-1b", "dp_tp")),
+    (("qwen3-moe-30b-a3b", "dp_tp_ep"), ("mixtral-8x7b", "dp_tp"),
+     ("mixtral-8x7b", "dp_tp_ep")),
+    (("gemma-2b", "dp_tp"), ("llama-3.2-vision-11b", "dp_tp"),
+     ("minicpm-2b", "dp_tp")))
 # the dry-run's serving cells on GPU_NODE, in two host processes:
 # decode_32k of every arch (tensor-parallel in every plan) and
 # mistral-large-123b's prefill_32k (``dp_tp``)
@@ -2914,18 +2958,13 @@ DRYRUN_SERVE_SPLIT = (
      ("mamba2-780m", "decode_32k"), ("hymba-1.5b", "decode_32k")))
 
 
-def world_one_plan(layout: str, moe_impl: str = "dense") -> ShardingPlan:
-    """``layout``'s axes on the (1, 1) mesh, remat on, one microbatch
-    ("unsharded": no axes, for ``make_train_step``)."""
-    ep = dict(batch_axes=("data",), seq_axes=("model",),
-              fsdp_axes=("data", "model"))
-    axes = {"unsharded": dict(batch_axes=()),
-            "P1_pure_dp": dict(batch_axes=("data", "model")),
-            "fsdp_all": dict(batch_axes=("data", "model"),
-                             fsdp_axes=("data", "model")),
-            "dp_sp_fsdp_ep": ep, "dp_sp_fsdp_ep_q8": ep}[layout]
-    return ShardingPlan(arch="smoke", shape="train", mesh=WORLD_ONE,
-                        global_mode="data", local_layout=layout, tp_axes=(),
+def world_one_plan(layout: str, moe_impl: str = "dense",
+                   mesh: MeshDesc = WORLD_ONE) -> ShardingPlan:
+    """``layout``'s axes (``LAYOUT_AXES``) on ``mesh``, remat on, one
+    microbatch."""
+    axes = {"tp_axes": (), **LAYOUT_AXES[layout]}
+    return ShardingPlan(arch="smoke", shape="train", mesh=mesh,
+                        global_mode="data", local_layout=layout,
                         moe_impl=moe_impl, **axes)
 
 
@@ -3032,8 +3071,7 @@ shape = ShapeConfig("train_smoke", {t}, {b}, "train")
 desc = MeshDesc(("data", "model"), (1, 1))
 for layout, axes in {layouts}:
     plan = ShardingPlan(arch="smoke", shape="train", mesh=desc,
-                        global_mode="data", local_layout=layout, tp_axes=(),
-                        **axes)
+                        global_mode="data", local_layout=layout, **axes)
     with dryrun.fake_world(desc) as mesh:
         rec = dryrun.trace_cell(model, shape, plan, mesh)
     print(json.dumps(dict(layout=layout, **rec)), flush=True)
@@ -3068,6 +3106,17 @@ for arch, shape in {cells!r}:
     print(json.dumps(rec, default=list), flush=True)
 """
 
+_DRYRUN_TP_CELLS = """
+import json, logging, os
+os.nice(19)
+logging.getLogger("torch.distributed.tensor").setLevel(40)
+from repro_torch.launch import dryrun
+for arch, layout in {cells!r}:
+    rec = dryrun.run_cell(arch, "{shape}", False, force_layout=layout,
+                          out_dir={out!r})
+    print(json.dumps(rec, default=list), flush=True)
+"""
+
 _DRYRUN_CELLS = """
 import json, logging
 logging.getLogger("torch.distributed.tensor._redistribute").setLevel(40)
@@ -3083,9 +3132,7 @@ def start_dryruns() -> dict:
     gemma-2b's two world-1 cells of
     ``sharded_gemma`` (at B x T = ``TRAIN_B`` x ``TRAIN_T``), and
     ``DRYRUN_SHAPE`` for every arch on each GPU mesh (``DRYRUN_SPLIT``)."""
-    layouts = [(lay, {"batch_axes": ("data", "model"),
-                      **({"fsdp_axes": ("data", "model")}
-                         if lay == "fsdp_all" else {})})
+    layouts = [(lay, {"tp_axes": (), **LAYOUT_AXES[lay]})
                for lay in DENSE_LAYOUTS]
     out = str(Path(__file__).resolve().parent / "artifacts" / "dryrun_gpu")
     return {"world_one": _dryrun_proc(_DRYRUN_WORLD_ONE.format(
@@ -3110,6 +3157,18 @@ def start_serving_dryruns() -> dict:
             **{f"serve_{i}": _dryrun_proc(_DRYRUN_SERVE.format(
                 cells=cells, out=out))
                for i, cells in enumerate(DRYRUN_SERVE_SPLIT)}}
+
+
+def start_tp_train_dryruns() -> dict:
+    """The dry-run's tensor-parallel training cells (``DRYRUN_TP_SPLIT``),
+    started right after the build: their traces take about 1250 s of host
+    time in all, so they run beside every phase, at the lowest scheduling
+    priority (``os.nice(19)``) so that the card's host-bound paths keep
+    their cores."""
+    out = str(Path(__file__).resolve().parent / "artifacts" / "dryrun_gpu")
+    return {f"tp_train_{i}": _dryrun_proc(_DRYRUN_TP_CELLS.format(
+                cells=cells, shape=DRYRUN_SHAPE, out=out))
+            for i, cells in enumerate(DRYRUN_TP_SPLIT)}
 
 
 def stop_dryruns(procs: dict) -> None:
@@ -3435,12 +3494,13 @@ def _cell_line(rec: dict) -> str:
 
 def dryrun_lines(procs: dict, world_one_runs: dict, tp_one: dict,
                  smi: str) -> None:
-    """The dry-run's records: gemma-2b's two world-1 training cells' and
-    its world-1 ``dp_tp`` decode cell's predicted peak beside the measured
-    one (a gap above 20% is logged, not failed), then one line per
-    ``DRYRUN_SHAPE`` cell on each GPU mesh and per serving cell beside the
-    planner's predicted resident GiB and collective ms; a serving cell must
-    trace ``ok``."""
+    """The dry-run's records: gemma-2b's world-1 training cells' (one per
+    ``DENSE_LAYOUTS``) and its world-1 ``dp_tp`` decode cell's predicted
+    peak beside the measured one (a gap above 20% is logged, not failed),
+    then one line per ``DRYRUN_SHAPE`` cell on each GPU mesh, per
+    tensor-parallel training cell and per serving cell beside the
+    planner's predicted resident GiB and collective ms; a serving or
+    tensor-parallel training cell must trace ``ok``."""
     t0 = time.perf_counter()
     for rec in _finish(procs["tp_world_one"], "tp world-1 cell", 600):
         got = tp_one["peak_gib"]
@@ -3468,6 +3528,19 @@ def dryrun_lines(procs: dict, world_one_runs: dict, tp_one: dict,
             f"{', above 20%' if abs(gap) > 0.2 else ''}); argument "
             f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB, "
             f"{rec['cost']['flops']:.3e} FLOPs [{smi}]")
+    tp_cells = sorted(c for cells in DRYRUN_TP_SPLIT for c in cells)
+    moe = [a for a in ARCH_IDS if get_config(a).moe is not None]
+    if tp_cells != sorted([(a, "dp_tp") for a in ARCH_IDS]
+                          + [(a, "dp_tp_ep") for a in moe]):
+        raise AssertionError(f"DRYRUN_TP_SPLIT is not every arch's dp_tp "
+                             f"cell and the MoE archs' dp_tp_ep")
+    for i in range(len(DRYRUN_TP_SPLIT)):
+        for rec in _finish(procs[f"tp_train_{i}"], "tp training cells", 900):
+            log(_cell_line(rec) + " [tp training]")
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry-run {rec['arch']} {rec['shape']} "
+                                     f"{rec['plan']['layout']}: "
+                                     f"{rec['status']}")
     if sorted(a for s in DRYRUN_SPLIT for a in s) != sorted(ARCH_IDS):
         raise AssertionError(f"DRYRUN_SPLIT is not the archs {ARCH_IDS}")
     for m in (False, True):
@@ -3887,6 +3960,151 @@ def tp_serving_phase(smi: str) -> dict:
     return dict(shares=shares, one=one, two=two)
 
 
+# --------------------------------------------------------------------------
+# Tensor-parallel training at world 2
+# --------------------------------------------------------------------------
+
+# ``dp_tp`` training at world 2 on the one card (two processes over gloo on
+# a (1, 2) mesh): full width, TP_TRAIN_LAYERS layers, B x T = TRAIN_B x
+# TRAIN_T, TP_TRAIN_STEPS steps against the unsharded step on the card.
+# gemma-2b: the tied embedding split by vocab (masked lookup, the vocab-split
+# cross entropy), q/k/v gathered through its one KV head (every rank runs all
+# 8 heads), wo and w_down by rows; mamba2-780m: w_in gathered, the conv by
+# channels, the SSD pass on 24 of 48 heads a rank, the gated norm's sum of
+# squares all-reduced, w_out by rows
+TP_TRAIN_ARCHS = ("gemma-2b", "mamba2-780m")
+TP_TRAIN_MESH = MeshDesc(("data", "model"), (1, 2))
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS = 2, 2
+# tests/_tp_train.py's limit on the first clip norm in bf16: the tp step sums
+# bf16 partial products across ranks, so it does not round where the
+# unsharded step does (losses and parameters keep STEP_LOSS_RTOL and
+# (i + 1) x STEP_PARAM_ATOL)
+TP_TRAIN_NORM_RTOL = 1e-2
+
+
+def _tp_train_run(aid: str, mesh) -> dict:
+    """``aid`` at full width and ``TP_TRAIN_LAYERS`` layers on this rank:
+    ``TP_TRAIN_STEPS`` unsharded steps, then as many ``dp_tp`` steps over
+    ``mesh`` from the same initialisation and batches, every kernel counter
+    set to 0 just before each sharded step and read just after.  Returns the
+    metrics, the final parameters' largest error on this rank's shards, the
+    steps' ms and launches, and the peak memory."""
+    from repro_torch.sharding import specs, spmd
+    cfg = dataclasses.replace(get_config(aid), n_layers=TP_TRAIN_LAYERS)
+    model = build_model(cfg)
+    data = iter(SyntheticDataset(cfg, TRAIN_B, TRAIN_T, seed=3))
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                next(data).items()} for _ in range(TP_TRAIN_STEPS)]
+    oc = train_optim.OptConfig()
+
+    def init():
+        return model.init(torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+
+    params = init()
+    opt = train_optim.init(params)
+    step = train_loop.make_train_step(model, oc, world_one_plan("unsharded"))
+    want = []
+    for tb in batches:
+        params, opt, m = step(params, opt, tb)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    plan = world_one_plan("dp_tp", mesh=TP_TRAIN_MESH)
+    ref_shards = specs.param_shardings(mesh, params, plan)
+    del params, opt, step
+    _free()
+    sp = specs.param_shardings(mesh, init(), plan)
+    so = train_optim.init(sp)
+    sstep = spmd.make_sharded_train_step(model, oc, plan, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    got, times, launches = [], [], []
+    for tb in batches:
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        sp, so, m = sstep(sp, so, tb)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        launches.append(_counts())
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+    err = max(float((g.to_local().float() - w.to_local().float()).abs()
+                    .max()) for g, w in zip(train_tree.leaves(sp),
+                                            train_tree.leaves(ref_shards)))
+    return dict(want=want, got=got, param_err=err, times=times,
+                launches=launches, want_launches=_step_launches(cfg),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def tp_train_world_two_worker(rank: int, d: str) -> None:
+    """One of two ranks on the one card over gloo: ``_tp_train_run`` of each
+    of ``TP_TRAIN_ARCHS``; writes its results to ``d``."""
+    import logging
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    torch.cuda.set_device(0)
+    _build.build_all(("flash_attention", "flash_attention_bwd",
+                      "ssd_intra_chunk", "ssd_intra_chunk_bwd"))
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_smoke_mesh(TP_TRAIN_MESH.shape, TP_TRAIN_MESH.axes,
+                               device_type="cuda")
+        out = {aid: _tp_train_run(aid, mesh) for aid in TP_TRAIN_ARCHS}
+        with open(f"{d}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_train_world_two(smi: str) -> dict:
+    """``tp_train_world_two_worker`` on two processes: each rank's losses
+    and first clip norm against the unsharded step's, its shards of the
+    final parameters, and its exact launches a step (the unsharded step's:
+    flash 2 forward and 1 backward a layer under remat, every rank running
+    all heads; SSD likewise at half the heads).  A rank's failure fails the
+    phase.  Returns rank 0's launches by arch."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(tp_train_world_two_worker, args=(d,), nprocs=2,
+                           start_method="spawn")
+        ranks = []
+        for r in range(2):
+            with open(f"{d}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    for aid in TP_TRAIN_ARCHS:
+        for rank, res in enumerate(ranks):
+            r = res[aid]
+            tag = f"{aid} dp_tp world 2 rank {rank}"
+            for i, got in enumerate(r["launches"]):
+                if got != r["want_launches"]:
+                    raise AssertionError(f"{tag} step {i} launches {got}, "
+                                         f"expected {r['want_launches']}")
+            lerr = max(abs(g[0] - w[0]) / abs(w[0])
+                       for g, w in zip(r["got"], r["want"]))
+            nerr = abs(r["got"][0][1] - r["want"][0][1]) / r["want"][0][1]
+            limit = TP_TRAIN_STEPS * STEP_PARAM_ATOL
+            if not (lerr <= STEP_LOSS_RTOL and nerr <= TP_TRAIN_NORM_RTOL
+                    and r["param_err"] < limit):
+                raise AssertionError(
+                    f"{tag}: losses and norms {r['got']} against "
+                    f"{r['want']}, parameters max|err| {r['param_err']:.3e}")
+            log(f"{tag} ({TP_TRAIN_LAYERS} layers, full width, B={TRAIN_B} "
+                f"T={TRAIN_T}, over gloo on one card): losses "
+                f"{[round(g[0], 5) for g in r['got']]} against "
+                f"{[round(w[0], 5) for w in r['want']]} (rel {lerr:.2e}, "
+                f"rtol {STEP_LOSS_RTOL}), first clip norm "
+                f"{r['got'][0][1]:.5f} against {r['want'][0][1]:.5f} (rel "
+                f"{nerr:.2e}, rtol {TP_TRAIN_NORM_RTOL}), its shards of the "
+                f"final parameters max|err| {r['param_err']:.3e} (atol "
+                f"{limit}); steps {[round(t, 1) for t in r['times']]} ms "
+                f"(gloo through the host), peak {r['peak_gib']:.2f} GiB, "
+                f"launches a step {r['launches'][-1]} [{smi}]")
+    log(f"tensor-parallel training at world 2: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {aid: ranks[0][aid]["launches"][-1] for aid in TP_TRAIN_ARCHS}
+
+
 # the tensor-core instantiations, which must not spill (their accumulators
 # live in registers): bf16 attention and its backward, and every
 # instantiation of the SSD pass and its backward (3xTF32)
@@ -3956,6 +4174,7 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
         f"kernels into {_build.BUILD_DIR}")
     for kname in _build.KERNELS:
         log_ptxas(kname, _build.build_log(kname))
+    dryruns.update(start_tp_train_dryruns())
 
     # 2. kernels against their plain versions; the grouped MoE step against
     # the dense oracle
@@ -4041,6 +4260,8 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     # cache's shares and their merge, gemma-2b through the sharded serving
     # steps at world 1 over NCCL and at world 2 on the card over gloo
     tp = tp_serving_phase(smi)
+    # 9. tensor-parallel training at world 2 on the card over gloo
+    tp_train_world_two(smi)
     dryruns.update(start_serving_dryruns())
 
     # 5. times at the main path's shapes

@@ -13,8 +13,9 @@ For each cell:
      ``--force-global model``; for prefill, ``spmd.make_sharded_prefill``;
      for decode, ``spmd.make_sharded_decode`` with the cache an argument,
      written in place (the reference donates it).  Under ``tp_axes`` the
-     serving steps keep every weight split and move activations
-     (``models.layers``).  The kernels' plain versions run, as in the
+     steps keep every weight split and move activations
+     (``models.layers``), the train step's gradients through the
+     crossings' backward (reduce-scatters and all-reduces).  The kernels' plain versions run, as in the
      reference (``ops.set_backend("blocked")``).
      The attention kernels on these abstract tensors take their shape
      paths (``ops``): their outputs and scratch allocated as on the card,
@@ -26,13 +27,17 @@ For each cell:
      under the reference's HLO names (``collective_bytes``).
 
 A cell the port has no step for is recorded ``not_ported`` with the reason
-(``not_ported``): training under ``tp_axes``, tensor parallelism beside a
-sequence split (``ctx_tp``, ``seq_tp``) or over two axes (``tp_all`` at
-B = 1), and a decode cache split over ``seq_axes``.  ``plan_gpu`` picks
-none of these on the GPU meshes; only ``--layout`` reaches them.
+(``not_ported``): tensor parallelism beside a sequence split (``ctx_tp``,
+``seq_tp``) or over two axes (``tp_all`` at B = 1), and a decode cache
+split over ``seq_axes``.  ``plan_gpu`` picks none of these on the GPU
+meshes; only ``--layout`` reaches them.  ``--layout dp_tp`` (or
+``dp_tp_fsdp``, and ``_ep``/``_ep_q8`` for MoE) traces a ``train_4k`` cell
+under tensor parallelism.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k \
+      --layout dp_tp
   python -m repro_torch.launch.dryrun --all [--multi-node] [--out DIR]
 """
 
@@ -264,10 +269,7 @@ def _decode_step(model, shape, plan, mesh, args: dict):
 def not_ported(plan, shape) -> str | None:
     """Why the port has no step for the cell, or None."""
     try:
-        if shape.kind == "train":
-            spmd.require_no_tp(plan)
-        else:
-            spmd.require_serving_layout(plan, shape.kind)
+        spmd.require_ported_layout(plan, shape.kind)
     except NotImplementedError as e:
         return str(e)
     return None

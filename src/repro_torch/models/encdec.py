@@ -77,7 +77,7 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
     b, t, _ = frames.shape
     positions = torch.arange(t, device=frames.device)[None].expand(b, t)
     _no_seq_split(cfg)
-    x = frames.to(torch.bfloat16)
+    x = frames.to(L.COMPUTE_DTYPE)
     for p in unstack(params["encoder"]):
         p = shard_ctx.gather_layer(p)
         h = L.apply_norm(cfg, p["ln1"], x)
@@ -110,7 +110,7 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     place of the logits."""
     b, t = tokens.shape
     x = shard_ctx.constrain_act(
-        L.embed(params["embed"], tokens, cfg.vocab).to(torch.bfloat16))
+        L.embed(params["embed"], tokens, cfg.vocab).to(L.COMPUTE_DTYPE))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")

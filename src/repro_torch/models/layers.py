@@ -7,11 +7,16 @@ state, as in the JAX package.  Attention and the SSD scan dispatch through
 ``repro_torch.kernels.ops``: the CUDA kernels on the card, the plain versions
 on the CPU.
 
-Under tensor-parallel serving (``sharding.ctx.tp()`` published) each weight
-arrives as the shard its spec gives it, after ``sanitize``: a leaf whose
-split dim is narrower than the model's is split over the group, one that is
-not stays whole.  Weights are never gathered; activations cross the group
-instead, where the GSPMD partitioning of the reference reshards them:
+Under tensor parallelism (``sharding.ctx.tp()`` published by the sharded
+train, prefill and decode steps) each weight arrives as the shard its spec
+gives it, after ``sanitize``: a leaf whose split dim is narrower than the
+model's is split over the group, one that is not stays whole.  Weights are
+never gathered; activations cross the group instead, where the GSPMD
+partitioning of the reference reshards them.  Every crossing is
+differentiable (``sharding.comm``'s ``AllGatherFn`` and ``AllReduceFn``; a
+rank's slice of a replicated tensor is a plain view), in the convention
+that each rank's loss is its share of the global loss, so that a replicated
+activation carries a partial gradient:
 
 * a column-split projection's output is all-gathered where the next op
   needs whole heads or segments (one all-gather for q, k and v together);
@@ -215,14 +220,16 @@ def _share(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _reduce(y: torch.Tensor) -> torch.Tensor:
-    """The sum of the ranks' partial ``y``."""
-    return comm.all_reduce(y, shard_ctx.tp().group)
+    """The sum of the ranks' partial ``y`` (its gradient: the ranks'
+    summed cotangents)."""
+    return comm.all_reduce_autograd(y, shard_ctx.tp().group)
 
 
 def _whole_cols(parts: list, fulls: list) -> list:
     """Each column shard (..., c) of ``parts`` whose ``fulls`` width it
     falls short of, gathered to (..., n·c) in rank order; one all-gather
-    for all of them.  Parts already whole pass through."""
+    for all of them (its gradient: each rank's columns of the ranks' summed
+    cotangents).  Parts already whole pass through."""
     idx = [i for i, (a, f) in enumerate(zip(parts, fulls))
            if _split(a.shape[-1], f)]
     if not idx:
@@ -230,7 +237,8 @@ def _whole_cols(parts: list, fulls: list) -> list:
     n = shard_ctx.tp_rank_size()[1]
     sizes = [parts[i].shape[-1] for i in idx]
     cat = torch.cat([parts[i] for i in idx], -1)
-    g = comm.all_gather(cat[None], shard_ctx.tp().group)      # (n, ..., c)
+    g = comm.all_gather_autograd(cat[None], 0,
+                                 shard_ctx.tp().group)        # (n, ..., c)
     out = list(parts)
     for i, piece in zip(idx, torch.split(g, sizes, -1)):
         out[i] = torch.movedim(piece, 0, -2).reshape(

@@ -83,7 +83,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     logits."""
     b, t = tokens.shape
     x = shard_ctx.constrain_act(
-        L.embed(params["embed"], tokens, cfg.vocab).to(torch.bfloat16))
+        L.embed(params["embed"], tokens, cfg.vocab).to(L.COMPUTE_DTYPE))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
@@ -96,7 +96,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         if vision is None:
             raise ValueError(f"mode {mode!r} needs the vision embeddings")
         positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
-    vis = None if vision is None else vision.to(torch.bfloat16)
+    vis = None if vision is None else vision.to(L.COMPUTE_DTYPE)
     selfs = [unstack(g) for g in unstack(params["self"])]
     crosses = unstack(params["cross"])
 

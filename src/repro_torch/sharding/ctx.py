@@ -17,11 +17,13 @@ reference's ``shard_map`` bodies do, and publishes two more things here:
   it, attention gathers keys and values over ``seq_group()`` and offsets
   its queries by ``seq_offset``.
 
-The tensor-parallel serving steps (``spmd.make_sharded_prefill`` and
-``make_sharded_decode``) publish a ``TPState`` (``tensor_parallel``): the
-group of the plan's ``tp_axes`` with this rank's index and its width, and
-how the caches lie over it, read from ``specs.cache_pspec`` after
-``sanitize`` on the caches' real shapes.  The layers read it
+The tensor-parallel steps (``spmd.make_sharded_grad_fn``,
+``make_sharded_prefill`` and ``make_sharded_decode``) publish a ``TPState``
+(``tensor_parallel``): the group of the plan's ``tp_axes`` with this rank's
+index and its width, and how the caches lie over it, read from
+``specs.cache_pspec`` after ``sanitize`` on the caches' real shapes (a
+train step reads the layout of the cache its batch's prompt would build,
+so that its layers split as the prefill's do).  The layers read it
 (``layers``): each weight computes on the shard its spec gives it, and
 activations cross the group where a split cuts through heads.  Without it
 every accessor gives the unsplit answer (width 1, offset 0), so every other
@@ -41,7 +43,7 @@ _LOGITS_SPEC: Spec | None = None    # (batch, seq, vocab)
 _MESH = None                        # DeviceMesh of the collective paths
 _EP_AXIS: str | tuple | None = None  # expert-parallel mesh axis
 _GATHER: Callable | None = None     # the sharded step's per-layer gather
-_TP: "TPState | None" = None        # the tensor-parallel serving state
+_TP: "TPState | None" = None        # the tensor-parallel state
 
 
 def set_specs(act: Spec | None, logits: Spec | None, mesh=None,
@@ -154,12 +156,12 @@ def seq_offset(t_local: int) -> int:
 
 
 # --------------------------------------------------------------------------
-# Tensor-parallel serving
+# Tensor parallelism
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class TPState:
-    """The tensor-parallel layout a serving step runs under.
+    """The tensor-parallel layout a step runs under.
 
     ``kv``: the self-attention cache ``k``/``v`` split over the group by its
     KV heads ("heads"), by its sequence ("seq": this rank holds rows

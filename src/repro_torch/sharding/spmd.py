@@ -3,8 +3,10 @@
 ``jax.jit(prefill | decode, in_shardings=..., out_shardings=...)``
 (``launch/dryrun.py``).
 
-The train step covers every plan whose ``tp_axes`` are empty (data
-parallelism, FSDP, and the sequence split with expert parallelism):
+The train step covers every training plan with at most one ``tp_axes``
+axis and no sequence split beside it (data parallelism, FSDP, the sequence
+split with expert parallelism, and ``dp_tp``, ``dp_tp_fsdp`` and their
+``_ep``/``_ep_q8`` variants):
 
 * Parameters and optimizer state are DTensors placed by ``specs``: that is
   the memory layout.  The batch is each rank's shard of it
@@ -23,11 +25,23 @@ parallelism, FSDP, and the sequence split with expert parallelism):
   axis (``Shard``) and ``moe_ep`` exchanges tokens over an all-to-all.
 * Under ``seq_axes`` attention gathers keys and values over the sequence
   group (``layers.attention``) and the queries keep their global positions.
-* Each rank's loss is its token sum over the global token count, so that
-  the reduced gradient equals the unsharded one; the clip norm is global
-  (``optimizer.global_norm``).
+* Under ``tp_axes`` every leaf keeps its shard over the tp axis (only its
+  FSDP dims are gathered), the step publishes a ``ctx.TPState`` as the
+  prefill does, and the layers compute on their shards and move
+  activations through ``comm``'s differentiable crossings.  The ranks of
+  a tp group hold the same tokens; each takes ``1/tp`` of their loss, so
+  that a replicated activation, and a leaf the tp axis replicates, carries
+  a partial gradient (``Partial`` over the tp axis too).  The cross entropy
+  reduces over the vocab split (``train_loop._ce``).
+* Each rank's loss is its token sum over the global token count (and the
+  tp width), so that the reduced gradient equals the unsharded one; the
+  reported loss is the global mean and the clip norm global
+  (``optimizer.global_norm``).  ``make_sharded_grad_fn`` gives the loss
+  and the gradients without the update.
 
-A training plan with ``tp_axes`` raises ``NotImplementedError``.
+Tensor parallelism over two axes (``tp_all`` at B = 1) or beside a sequence
+split (``ctx_tp``, ``seq_tp``) raises ``NotImplementedError``
+(``require_ported_layout``).
 
 The serving steps (``make_sharded_prefill``, ``make_sharded_decode``) cover
 every prefill or decode plan whose ``tp_axes`` are one mesh axis and whose
@@ -36,11 +50,9 @@ variants, ``tp_all`` at B > 1), and the plans without ``tp_axes``.  The
 parameters (bf16) and caches are DTensors placed by ``specs``; the step
 publishes the plan and a ``ctx.TPState`` (the tp group, and how the caches
 lie over it after ``sanitize``) and runs the model on local tensors under
-``torch.no_grad()``.  Under ``tp_axes`` a layer's leaves keep their shard
-over the tp axis (only FSDP dims are gathered): the layers compute on
-their shards and move activations (``models.layers``).  The logits come
-back as a DTensor under ``specs.logits_pspec``, the cache as DTensors in
-its own placements, updated in place at decode.
+``torch.no_grad()``.  The logits come back as a DTensor under
+``specs.logits_pspec``, the cache as DTensors in its own placements,
+updated in place at decode.
 """
 
 from __future__ import annotations
@@ -62,16 +74,8 @@ STACKED = ("layers", "encoder", "decoder", "self", "cross")
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
-def require_no_tp(plan: ShardingPlan) -> None:
-    if plan.tp_axes:
-        raise NotImplementedError(
-            f"layout {plan.local_layout!r} shards over tp_axes "
-            f"{plan.tp_axes}: training under tensor parallelism is not "
-            "ported (the serving steps are)")
-
-
-def require_serving_layout(plan: ShardingPlan, kind: str) -> None:
-    """Raises for the layouts the serving steps of ``kind`` ("prefill" or
+def require_ported_layout(plan: ShardingPlan, kind: str) -> None:
+    """Raises for the layouts the steps of ``kind`` ("train", "prefill" or
     "decode") do not cover: tensor parallelism over two axes (``tp_all`` at
     B = 1) or beside a sequence split (``ctx_tp``, ``seq_tp``), and a
     decode cache split over ``seq_axes``."""
@@ -129,7 +133,8 @@ class _Gather:
     """Leaves (DTensors) to the local tensors the model computes with:
     ``redistribute`` to the compute placement, then ``to_local`` with the
     gradient's placement (``Partial`` over the token axes where the
-    compute is replicated)."""
+    compute is replicated, and over the tp axis where the leaf is
+    replicated over it)."""
 
     def __init__(self, mesh, plan: ShardingPlan, toks: tuple[str, ...],
                  num_experts: int | None):
@@ -139,8 +144,8 @@ class _Gather:
         self.replicate = tuple(Replicate() for _ in names)
         self.grad = tuple(Partial() if a in toks else Replicate()
                           for a in names)
-        # under tensor parallelism (serving) every leaf keeps its shard over
-        # the tp axis; only its FSDP dims are gathered
+        # under tensor parallelism every leaf keeps its shard over the tp
+        # axis; only its FSDP dims are gathered
         self.tp_dim = (names.index(plan.tp_axes[0]) if plan.tp_axes
                        else None)
         # the mesh dim the expert stacks keep their experts split over
@@ -154,9 +159,15 @@ class _Gather:
         """(compute placements, gradient placements) of a layer's leaf; the
         expert dim of an expert stack is its third from last."""
         if self.tp_dim is not None:
-            pl = list(self.replicate)
-            pl[self.tp_dim] = leaf.placements[self.tp_dim]
-            return tuple(pl), tuple(pl)
+            from torch.distributed.tensor import Partial
+            own = leaf.placements[self.tp_dim]
+            pl, gp = list(self.replicate), list(self.grad)
+            pl[self.tp_dim] = own
+            # a shard's gradient is whole over the group (the crossings'
+            # backward brings every rank's part); a replicated leaf's, like a
+            # replicated activation's, is each rank's partial
+            gp[self.tp_dim] = own if own.is_shard() else Partial()
+            return tuple(pl), tuple(gp)
         if (self.ep_dim is not None and "moe" in path
                 and path[-1] in EXPERT_STACKS):
             from torch.distributed.tensor import Shard
@@ -195,53 +206,57 @@ def local_params(params: dict, gather: _Gather) -> dict:
             for k, v in params.items()}
 
 
-def make_sharded_train_step(model, opt_cfg: optim.OptConfig,
-                            plan: ShardingPlan, mesh) -> Callable:
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics): ``params`` and ``opt_state`` DTensors (``specs.
-    param_shardings`` and ``optimizer.init`` on them), ``batch`` the global
-    batch, which every rank holds and the step splits by
-    ``specs.batch_pspec``.  The microbatch count, remat, ``remat_group`` and
-    ``moe_impl`` come from the plan, as in ``train_loop.make_train_step``;
-    the metrics are global, the same on every rank."""
-    require_no_tp(plan)
+def make_sharded_grad_fn(model, plan: ShardingPlan, mesh) -> Callable:
+    """Returns grads(params, batch) -> (loss, gradients): ``params``
+    DTensors (``specs.param_shardings``), ``batch`` the global batch, which
+    every rank holds and the step splits by ``specs.batch_pspec``; the loss
+    is the global mean, the same on every rank, and the gradients DTensors
+    in their parameters' placements.  The microbatch count, remat,
+    ``remat_group`` and ``moe_impl`` come from the plan, as in
+    ``train_loop.make_train_step``."""
+    require_ported_layout(plan, "train")
     cfg = model.cfg
     n_micro = max(plan.microbatches, 1)
     sizes = specs.axis_sizes(mesh)
+    n_tp = sizes[plan.tp_axes[0]] if plan.tp_axes else 1
     num_experts = cfg.moe.num_experts if cfg.moe is not None else None
     if plan.seq_axes and cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: a sequence split of the SSM scan; no GPU plan "
             "asks for one")
 
-    def grads_of(params, batch, gather, frac):
+    def grads_of(params, batch, gather, tp, frac):
         """(this rank's share of the loss, gradients as DTensors)."""
-        with torch.enable_grad(), local_view(mesh, plan, gather):
+        with torch.enable_grad(), local_view(mesh, plan, gather), \
+                shard_ctx.tensor_parallel(tp):
             ps = tree.map(lambda p: p.detach().requires_grad_(True), params)
             loss = train_loop.loss_fn(
                 model, local_params(ps, gather), batch, remat=plan.remat,
                 remat_group=getattr(plan, "remat_group", 1),
                 moe_impl=plan.moe_impl) * frac
-            grads = torch.autograd.grad(loss, tree.leaves(ps))
+            # the ranks of a tp group hold the same tokens: each takes its
+            # 1/tp of their loss (``comm``'s convention)
+            grads = torch.autograd.grad(loss / n_tp, tree.leaves(ps))
         # each gradient in its parameter's placements (reduced, not partial)
         grads = [g.redistribute(p.device_mesh, p.placements)
                  for g, p in zip(grads, tree.leaves(params))]
         return loss.detach(), tree.unflatten(params, grads)
 
-    def train_step(params, opt_state, batch):
+    def grad_fn(params, batch):
         toks = token_axes(mesh, batch, plan)
         gather = _Gather(mesh, plan, toks, num_experts)
+        tp = tp_state(mesh, plan, prompt_cache_meta(model, batch))
         batch = local_batch(mesh, batch, plan)
         n_tok = 1
         for a in toks:
             n_tok *= sizes[a]
         # each rank's loss is its token mean over the ranks the tokens are
         # split over: the ranks' sum is the global mean.  Ranks that repeat
-        # one another's tokens (an axis the batch does not divide over)
-        # count 1/r each in the reported loss
+        # one another's tokens (the tp group, an axis the batch does not
+        # divide over) count 1/r each in the reported loss
         frac = 1.0 / n_tok
         if n_micro == 1:
-            loss, grads = grads_of(params, batch, gather, frac)
+            loss, grads = grads_of(params, batch, gather, tp, frac)
         else:
             micro = train_loop._split_microbatches(batch, n_micro)
             loss = torch.zeros((), dtype=torch.float32,
@@ -251,13 +266,28 @@ def make_sharded_train_step(model, opt_cfg: optim.OptConfig,
             for i in range(n_micro):
                 mb_loss, g = grads_of(params,
                                       {k: v[i] for k, v in micro.items()},
-                                      gather, frac)
+                                      gather, tp, frac)
                 for acc, gi in zip(tree.leaves(grads), tree.leaves(g)):
                     acc.add_(gi)                  # fp32 accumulation
                 loss = loss + mb_loss
             loss = loss / n_micro
             grads = tree.map(lambda g: g / n_micro, grads)
-        loss = _sum_over_mesh(loss / (mesh.size() // n_tok), mesh)
+        return _sum_over_mesh(loss / (mesh.size() // n_tok), mesh), grads
+
+    return grad_fn
+
+
+def make_sharded_train_step(model, opt_cfg: optim.OptConfig,
+                            plan: ShardingPlan, mesh) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): ``params`` and ``opt_state`` DTensors (``specs.
+    param_shardings`` and ``optimizer.init`` on them), ``batch`` the global
+    batch (``make_sharded_grad_fn``); the metrics are global, the same on
+    every rank."""
+    grad_fn = make_sharded_grad_fn(model, plan, mesh)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
         params, opt_state, metrics = optim.apply_updates(
             opt_cfg, params, grads, opt_state)
         metrics["loss"] = loss
@@ -276,8 +306,8 @@ def _sum_over_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def tp_state(mesh, plan: ShardingPlan, cache: dict
              ) -> shard_ctx.TPState | None:
-    """The tensor-parallel state of a serving step over ``cache`` (whole
-    shapes: DTensors, or ``meta`` stand-ins of a prompt's cache): the tp
+    """The tensor-parallel state of a step over ``cache`` (whole shapes:
+    DTensors, or ``meta`` stand-ins of a prompt's cache): the tp
     group, this rank, and where ``specs.cache_specs_tree`` (after
     ``sanitize``) puts the tp axis in each cache leaf.  None without
     ``tp_axes``."""
@@ -393,7 +423,7 @@ def make_sharded_prefill(model, plan: ShardingPlan, mesh) -> Callable:
     logits (B, 1, V) come back as a DTensor under ``specs.logits_pspec``,
     the prompt's cache as DTensors under ``specs.cache_specs_tree`` of its
     shapes (the reference's ``out_shardings``)."""
-    require_serving_layout(plan, "prefill")
+    require_ported_layout(plan, "prefill")
     cfg = model.cfg
     setup = _ServingSetup(model, plan, mesh)
 
@@ -418,7 +448,7 @@ def make_sharded_decode(model, plan: ShardingPlan, mesh) -> Callable:
     1) and ``lengths`` (B,)); ``cache`` DTensors under ``specs.
     cache_shardings``, written in place (the reference donates it) and
     returned; the logits (B, 1, V) a DTensor under ``specs.logits_pspec``."""
-    require_serving_layout(plan, "decode")
+    require_ported_layout(plan, "decode")
     cfg = model.cfg
     setup = _ServingSetup(model, plan, mesh)
 

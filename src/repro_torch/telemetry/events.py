@@ -27,8 +27,8 @@ Ids come from the recorder's deterministic allocation counter (program
 order, not wall clocks), so parentage is part of the replayable surface:
 :meth:`TelemetryEvent.canonical` **keeps** both fields, and two seeded
 replays must agree on the whole tree byte-for-byte.
-The JAX package's ``repro.telemetry.trace`` reconstructs the trees
-and computes critical paths from them (not ported yet).
+:mod:`repro_torch.telemetry.trace` reconstructs the trees and computes
+critical paths from them.
 
 Determinism is a schema contract, not an aspiration: every field except
 the :data:`WALL_FIELDS` (``wall`` — the unix timestamp, ``wall_s`` — a

@@ -5,7 +5,10 @@ and remat, all driven by a ``ShardingPlan``.
 ``chunked_ce_loss`` pins each slice's logits with ``shard_ctx.
 constrain_logits`` as the reference does: the identity on the local tensors
 the port's steps compute with (``sharding.spmd`` runs this same loss on
-each rank's shard).
+each rank's shard).  Under tensor parallelism the head gives each rank its
+vocab slice of the logits, and the cross entropy reduces over the group
+(``_ce``): the reference contracts with a one-hot for the same reason,
+so that a vocab-split tensor partitions.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.model import Model
+from repro_torch.sharding import comm
 from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.sharding.plan import ShardingPlan
 from . import optimizer as optim
@@ -29,11 +33,39 @@ def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return logits.gather(-1, targets.long()[..., None])[..., 0]
 
 
-def ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _ce(logits: torch.Tensor, targets: torch.Tensor,
+        vocab: int | None = None) -> torch.Tensor:
+    """The cross entropy at every position.  Where ``logits`` are this
+    rank's slice of a ``vocab`` split over the tensor-parallel group (rank
+    r holds ids [r·V/n, (r+1)·V/n)), the log-sum-exp and the gold logit
+    reduce over the group: the max all-reduced as a max (a constant to
+    autograd), then the sum of exponentials and the gold logit (a gather
+    masked to the rank's ids) in one all-reduce.  Each rank's value is the
+    whole loss of its tokens."""
+    tp = shard_ctx.tp()
+    vl = logits.shape[-1]
+    if tp is None or vocab is None or vl == vocab:
+        return torch.logsumexp(logits, dim=-1) - _gold(logits, targets)
+    if vl * tp.size != vocab:
+        raise ValueError(f"logits of {vl} ids are neither the vocab "
+                         f"{vocab} nor its 1/{tp.size} share")
+    m = comm.all_reduce(logits.detach().amax(-1), tp.group, "max")
+    local = targets.long() - tp.rank * vl
+    mine = (local >= 0) & (local < vl)
+    gold = torch.where(mine, _gold(logits, local.clamp(0, vl - 1)), 0.0)
+    sums = comm.all_reduce_autograd(
+        torch.stack([torch.exp(logits - m[..., None]).sum(-1), gold]),
+        tp.group)
+    return m + torch.log(sums[0]) - sums[1]
+
+
+def ce_loss(logits: torch.Tensor, targets: torch.Tensor,
+            vocab: int | None = None) -> torch.Tensor:
     """Next-token cross entropy, mean over all positions.  logits: (B, T, V)
-    fp32; targets: (B, T), already shifted by the data pipeline (targets[t]
-    is the token after position t)."""
-    return (torch.logsumexp(logits, dim=-1) - _gold(logits, targets)).mean()
+    fp32, or this rank's vocab slice of them (``_ce``); targets: (B,
+    T), already shifted by the data pipeline (targets[t] is the token after
+    position t)."""
+    return _ce(logits, targets, vocab).mean()
 
 
 def chunked_ce_loss(model: Model, params: dict, hidden: torch.Tensor,
@@ -51,7 +83,7 @@ def chunked_ce_loss(model: Model, params: dict, hidden: torch.Tensor,
 
     def body(h, tg):
         logits = shard_ctx.constrain_logits(model.unembed_hidden(params, h))
-        return (torch.logsumexp(logits, dim=-1) - _gold(logits, tg)).sum()
+        return _ce(logits, tg, model.cfg.vocab).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for h, tg in zip(hs, ts):
@@ -71,7 +103,7 @@ def loss_fn(model: Model, params: dict, batch: dict, *,
                                loss_chunks)
     logits = model.apply_train(params, batch, remat=remat,
                                remat_group=remat_group, moe_impl=moe_impl)
-    return ce_loss(logits, batch["targets"])
+    return ce_loss(logits, batch["targets"], model.cfg.vocab)
 
 
 def _split_microbatches(batch: dict, n: int) -> dict:

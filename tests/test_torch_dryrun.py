@@ -4,10 +4,11 @@ tests/test_dryrun_tools.py's HLO parser test; ``run_cell`` at the fake
 world of ``GPU_NODE`` (8 ranks) and ``GPU_MULTI_NODE`` (16) for reduced
 configurations, whose argument bytes must be the sum of one rank's shards
 and whose FLOPs per GPU must agree with the analytic ``step_flops``; the
-GPipe pipeline under ``force_global="model"``; the tensor-parallel serving
-cells (a decode cell over its cache, a prefill cell), a decode cell under
-a forced ``P1_pure_dp`` with its cache among the arguments; and a layout
-the port has no step for (training under ``tp_axes``) recorded
+GPipe pipeline under ``force_global="model"``; training under ``tp_axes``
+(``dp_tp``, ``dp_tp_fsdp``, qwen3's ``dp_tp_ep``); the tensor-parallel
+serving cells (a decode cell over its cache, a prefill cell), a decode
+cell under a forced ``P1_pure_dp`` with its cache among the arguments; and
+a layout the port has no step for (``ctx_tp`` training) recorded
 ``not_ported``.  No process group outlives a cell.
 """
 
@@ -125,15 +126,54 @@ def test_pipeline_cell_at_fake_world():
     assert rec["collectives"]["collective-permute"] > 0
 
 
-def test_tensor_parallel_cell_is_not_ported():
-    """Training under ``tp_axes`` (only ``--layout`` reaches it) has no
-    step in the port; the serving cells do."""
-    rec = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
-                          force_layout="dp_tp")
-    assert rec["status"] == "not_ported"
+TP_TRAIN_CELLS = [("gemma-2b", "dp_tp"), ("gemma-2b", "dp_tp_fsdp"),
+                  ("qwen3-moe-30b-a3b", "dp_tp_ep")]
+
+
+@pytest.mark.parametrize("aid,layout", TP_TRAIN_CELLS)
+def test_tensor_parallel_train_cell_at_fake_world(aid, layout):
+    """Training under ``tp_axes`` (only ``--layout`` reaches it) traces:
+    every weight split over ``model`` stays split, the arguments are one
+    rank's shards, and the gradients cross back through the crossings'
+    backward (the all-gathers' reduce-scatters) and all-reduces."""
+    cfg = get_config(aid).reduced()
+    rec = dryrun.run_cell(aid, "train_4k", False, out_dir=None, cfg=cfg,
+                          force_layout=layout)
+    assert rec["status"] == "ok", rec
     assert rec["plan"]["tp_axes"] == ("model",)
-    assert "training under tensor parallelism" in rec["reason"]
-    assert "[NOT PORTED]" in dryrun.line(rec)
+    assert rec["plan"]["layout"] == layout
+    model, shape = build_model(cfg), SHAPES["train_4k"]
+    plan = plan_gpu(model, shape, GPU_NODE, force_layout=layout)
+    assert rec["memory"]["argument_bytes"] == _shard_bytes(
+        model, shape, plan, GPU_NODE)
+    assert rec["memory"]["peak_per_device"] >= rec["memory"][
+        "argument_bytes"]
+    assert rec["cost"]["flops"] > 0 and rec["cost"]["attention_flops"] > 0
+    coll = rec["collectives"]
+    assert coll["reduce-scatter"] > 0 and coll["all-reduce"] > 0, coll
+    if plan.moe_impl.startswith("ep_a2a"):
+        assert coll["all-to-all"] > 0
+    assert "[OK]" in dryrun.line(rec)
+
+
+def test_tensor_parallel_beside_a_sequence_split_is_not_ported():
+    """``ctx_tp`` (the sequence over ``data``, tensors over ``model``) has
+    no train step: the dry-run records it ``not_ported`` and the step
+    refuses it.  ``plan_gpu`` offers it for decode only, so the plan is
+    built here."""
+    from repro_torch.sharding import MeshDesc, ShardingPlan, spmd
+    from repro_torch.training import optimizer as optim
+    plan = ShardingPlan(arch="gemma-2b", shape="train_4k",
+                        mesh=MeshDesc(("data", "model"), (1, 8)),
+                        global_mode="data", local_layout="ctx_tp",
+                        batch_axes=(), seq_axes=("data",),
+                        tp_axes=("model",))
+    why = dryrun.not_ported(plan, SHAPES["train_4k"])
+    assert why is not None and "sequence split" in why
+    with pytest.raises(NotImplementedError, match="ctx_tp"):
+        spmd.make_sharded_train_step(
+            build_model(get_config("gemma-2b").reduced()),
+            optim.OptConfig(), plan, None)
 
 
 def _serving_bytes(model, shape, plan, mesh) -> int:

@@ -378,8 +378,9 @@ def test_cluster_and_membership_fingerprints_equal_the_jax_digests():
 
 # the multi-GPU layer with jax, repro and msgpack refused: the expert
 # all-to-all, the sharded step, the pipeline and the tensor-parallel serving
-# steps on two gloo ranks, then dry-run cells on the fake process group.  A file, so that the spawned
-# ranks can import its worker (and refuse the same imports)
+# and train steps on two gloo ranks, then dry-run cells on the fake process
+# group.  A file, so that the spawned ranks can import its worker (and
+# refuse the same imports)
 _MULTI_WITHOUT_JAX = """
 import logging, sys, tempfile
 
@@ -456,12 +457,18 @@ def worker(rank, path):
     logits, _ = spmd.make_sharded_decode(gmodel, tplan, mesh)(
         gsp, dc, {"tokens": tok[:, :1], "lengths": lens})
     logits = logits.full_tensor()
+    # tensor-parallel training: the same plan's train step
+    tstep = spmd.make_sharded_train_step(gmodel, optim.OptConfig(), tplan,
+                                         mesh)
+    gtrain = specs.param_shardings(mesh, gparams, tplan)
+    _, _, tm = tstep(gtrain, optim.init(gtrain), {"tokens": tok,
+                                                  "targets": tok})
     if rank == 0:
         print("RANKS", tuple(y.shape), bool(torch.isfinite(m["loss"])),
               tuple(h.shape), "BAD", bad(), flush=True)
         print("TP", tuple(cache["k"].to_local().shape),
               tuple(logits.shape), bool(torch.isfinite(logits).all()),
-              flush=True)
+              bool(torch.isfinite(tm["loss"])), flush=True)
     dist.destroy_process_group()
 
 
@@ -473,17 +480,22 @@ if __name__ == "__main__":
                          cfg=get_config("gemma-2b").reduced())
     tp = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None,
                          cfg=get_config("gemma-2b").reduced())
-    no = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
-                         force_layout="dp_tp")
-    print("DRYRUN", ok["status"], tp["status"], no["status"], "BAD", bad())
+    tpt = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
+                          cfg=get_config("gemma-2b").reduced(),
+                          force_layout="dp_tp")
+    no = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None,
+                         force_layout="ctx_tp")
+    print("DRYRUN", ok["status"], tp["status"], tpt["status"], no["status"],
+          "BAD", bad())
 """
 
 
 def test_multi_gpu_layer_runs_where_jax_and_repro_cannot_import(tmp_path):
     """``moe_ep``'s all-to-all, the sharded step, the pipeline and the
-    tensor-parallel serving steps on gloo ranks, and the dry-run on the
-    fake process group, with jax, ``repro`` and ``msgpack`` refused at
-    import in every process."""
+    tensor-parallel serving and train steps on gloo ranks, and the dry-run
+    on the fake process group (a tensor-parallel train cell traced, a
+    ``ctx_tp`` cell refused), with jax, ``repro`` and ``msgpack`` refused
+    at import in every process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT / "src")
     script = tmp_path / "multi_without_jax.py"
@@ -493,5 +505,6 @@ def test_multi_gpu_layer_runs_where_jax_and_repro_cannot_import(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "RANKS (2, 4, 64) True (2, 16, 64) BAD []" in out.stdout, \
         out.stdout
-    assert "TP (2, 2, 8, 1, 16) (2, 1, 256) True" in out.stdout, out.stdout
-    assert "DRYRUN ok ok not_ported BAD []" in out.stdout, out.stdout
+    assert "TP (2, 2, 8, 1, 16) (2, 1, 256) True True" in out.stdout, \
+        out.stdout
+    assert "DRYRUN ok ok ok not_ported BAD []" in out.stdout, out.stdout
