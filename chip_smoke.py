@@ -3101,8 +3101,9 @@ _DRYRUN_SERVE = """
 import json, logging
 logging.getLogger("torch.distributed.tensor").setLevel(40)
 from repro_torch.launch import dryrun
-for arch, shape in {cells!r}:
-    rec = dryrun.run_cell(arch, shape, False, out_dir={out!r})
+for arch, shape, *layout in {cells!r}:
+    rec = dryrun.run_cell(arch, shape, False, out_dir={out!r},
+                          force_layout=layout[0] if layout else None)
     print(json.dumps(rec, default=list), flush=True)
 """
 
@@ -3147,8 +3148,9 @@ def start_dryruns() -> dict:
 
 def start_serving_dryruns() -> dict:
     """The dry-run's serving processes: gemma-2b's world-1 ``dp_tp`` decode
-    cell of ``tp_world_one`` (B x S = ``TP_B`` x ``TP_S``) and the cells of
-    ``DRYRUN_SERVE_SPLIT``.  Started after the tensor-parallel phase, beside
+    cell of ``tp_world_one`` (B x S = ``TP_B`` x ``TP_S``), the cells of
+    ``DRYRUN_SERVE_SPLIT`` and, in a third process, ``DRYRUN_SP_SERVE``
+    (the layouts beside a sequence split or over two axes).  Started after the tensor-parallel phase, beside
     the device-timed kernel phase, so that they load the host neither
     beside the training dry-runs nor beside host-bound steps."""
     out = str(Path(__file__).resolve().parent / "artifacts" / "dryrun_gpu")
@@ -3156,7 +3158,8 @@ def start_serving_dryruns() -> dict:
                 s=TP_S, b=TP_B)),
             **{f"serve_{i}": _dryrun_proc(_DRYRUN_SERVE.format(
                 cells=cells, out=out))
-               for i, cells in enumerate(DRYRUN_SERVE_SPLIT)}}
+               for i, cells in enumerate(DRYRUN_SERVE_SPLIT
+                                         + (DRYRUN_SP_SERVE,))}}
 
 
 def start_tp_train_dryruns() -> dict:
@@ -3512,8 +3515,14 @@ def dryrun_lines(procs: dict, world_one_runs: dict, tp_one: dict,
             f"{', above 20%' if abs(gap) > 0.2 else ''}); argument "
             f"{rec['memory']['argument_bytes'] / 2**30:.2f} GiB, "
             f"{rec['cost']['flops']:.3e} FLOPs [{smi}]")
-    for i in range(len(DRYRUN_SERVE_SPLIT)):
-        for rec in _finish(procs[f"serve_{i}"], "serving cells", 900):
+    for i in range(len(DRYRUN_SERVE_SPLIT) + 1):
+        recs = _finish(procs[f"serve_{i}"], "serving cells", 900)
+        if i == len(DRYRUN_SERVE_SPLIT) and [
+                (r["arch"], r["shape"], r["plan"]["layout"]) for r in recs
+                ] != list(DRYRUN_SP_SERVE):
+            raise AssertionError("the dry-run's sequence-split and two-axis "
+                                 f"cells are not {DRYRUN_SP_SERVE}")
+        for rec in recs:
             log(_cell_line(rec))
             if rec["status"] != "ok":
                 raise AssertionError(f"dry-run {rec['arch']} {rec['shape']}"
@@ -3624,11 +3633,12 @@ def tp_plan(mesh_shape) -> ShardingPlan:
 
 def _tp_counts() -> dict:
     return {"flash_attention": fa.launches, "decode_attention": da.launches,
-            "decode_attention_merge": da.merge_launches}
+            "decode_attention_merge": da.merge_launches,
+            "ssd_intra_chunk": ssd_scan.launches}
 
 
 def _tp_zero() -> None:
-    fa.launches = da.launches = da.merge_launches = 0
+    fa.launches = da.launches = da.merge_launches = ssd_scan.launches = 0
 
 
 def _row_check(name, got, want, rtol) -> float:
@@ -3740,16 +3750,20 @@ def check_decode_shares(smi: str) -> dict:
     return out
 
 
-def _tp_cache(model, prompt_cache: dict, b: int, seed: int) -> dict:
-    """A decode cache of ``TP_S`` rows: the prompt's k/v in its first rows,
-    seeded N(0, 1) bf16 after them (the rows a longer context would have
-    written)."""
-    cache = model.init_cache(b, TP_S, device="cuda")
+def _tp_cache(model, prompt_cache: dict, b: int, seed: int,
+              s: int = TP_S) -> dict:
+    """A decode cache of ``s`` rows for ``b`` sequences: the prompt's k/v
+    in the first rows of its sequences, seeded N(0, 1) bf16 elsewhere (the
+    rows a longer context would have written); the prompt's SSM state and
+    conv context where the family has them."""
+    cache = model.init_cache(b, s, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for name in ("k", "v"):
-        cache[name].normal_(generator=gen)
-        t = prompt_cache[name].shape[2]
-        cache[name][:, :, :t] = prompt_cache[name]
+    for name, v in prompt_cache.items():
+        if name in ("k", "v"):
+            cache[name].normal_(generator=gen)
+            cache[name][:, :v.shape[1], :v.shape[2]] = v
+        else:
+            cache[name][:, :v.shape[1]] = v
     return cache
 
 
@@ -3767,62 +3781,79 @@ def _greedy_check(tag: str, got, want, tol: float) -> float:
 
 
 def _tp_serve(model, params, mesh, mesh_shape, b: int, seed: int,
-              logits_of) -> dict:
-    """The unsharded ``apply_prefill`` of a ``TP_PROMPT``-token prompt, its
-    cache in a ``_tp_cache`` and ``TP_STEPS`` ``apply_decode`` steps; then
-    the same through ``make_sharded_prefill``/``make_sharded_decode`` under
-    ``dp_tp`` on ``mesh``, fed the unsharded run's greedy tokens, every
-    kernel counter set to 0 just before and read just after (the main
-    path).  ``logits_of``: a sharded step's logits whole.  Returns the
-    errors, the sharded decode steps' ms, launches and peak."""
+              logits_of, plans: tuple | None = None,
+              prefill_b: int | None = None, prompt: int = TP_PROMPT,
+              steps: int = TP_STEPS, cache_s: int = TP_S) -> dict:
+    """The unsharded ``apply_prefill`` of ``prefill_b`` (default ``b``)
+    prompts of ``prompt`` tokens, its cache in a ``_tp_cache`` of ``b``
+    sequences and ``cache_s`` rows and ``steps`` ``apply_decode`` steps;
+    then the same through ``make_sharded_prefill``/``make_sharded_decode``
+    on ``mesh`` under ``plans`` (prefill plan, decode plan; ``dp_tp`` for
+    both by default), fed the unsharded run's greedy tokens (seeded ones
+    for the sequences the prompt did not have), every kernel counter set
+    to 0 just before and read just after (the main path).  ``logits_of``: a
+    sharded step's logits whole.  Returns the errors, whether each step's
+    logits equal the unsharded ones to the bit, the sharded decode steps'
+    ms, launches and peak."""
     from repro_torch.sharding import specs, spmd
     cfg = model.cfg
-    plan = tp_plan(mesh_shape)
+    plan_p, plan_d = plans or (tp_plan(mesh_shape),) * 2
+    pb = prefill_b or b
     world = mesh_shape[0] * mesh_shape[1]
-    tol = TP_LOGITS_TOL[world]
+    tol = TP_LOGITS_TOL[min(world, 2)]
     rng = np.random.default_rng(seed)
     batch = {"tokens": torch.from_numpy(rng.integers(
-                 0, cfg.vocab, (b, TP_PROMPT)).astype(np.int32)).cuda(),
-             "lengths": torch.full((b,), TP_PROMPT, dtype=torch.int32,
+                 0, cfg.vocab, (pb, prompt)).astype(np.int32)).cuda(),
+             "lengths": torch.full((pb,), prompt, dtype=torch.int32,
                                    device="cuda")}
-    start = TP_S - TP_STEPS
+    extra = torch.from_numpy(rng.integers(0, cfg.vocab, (b - pb, 1)).astype(
+        np.int32)).cuda()
+    start = cache_s - steps
     with torch.no_grad():
-        lu, cu = model.apply_prefill(params, batch)
-        cache = _tp_cache(model, cu, b, seed)
-        want, toks = [lu], [lu.argmax(-1).to(torch.int32)]
+        lu, cu = model.apply_prefill(params, batch, moe_impl=plan_p.moe_impl)
+        cache = _tp_cache(model, cu, b, seed, cache_s)
+        want = [lu]
+        toks = [torch.cat([lu[:, 0].argmax(-1, keepdim=True).to(torch.int32),
+                           extra])]
         plain_times = []
-        for i in range(TP_STEPS):
+        for i in range(steps):
             lens = torch.full((b,), start + i + 1, dtype=torch.int32,
                               device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             lg, cache = model.apply_decode(params, cache,
                                            {"tokens": toks[-1],
-                                            "lengths": lens})
+                                            "lengths": lens},
+                                           moe_impl=plan_d.moe_impl)
             torch.cuda.synchronize()
             plain_times.append(1e3 * (time.perf_counter() - t0))
             want.append(lg)
-            toks.append(lg.argmax(-1).to(torch.int32))
+            toks.append(lg[:, 0].argmax(-1, keepdim=True).to(torch.int32))
     del cache
     _free()
-    sp = specs.param_shardings(mesh, params, plan)
-    prefill = spmd.make_sharded_prefill(model, plan, mesh)
-    decode = spmd.make_sharded_decode(model, plan, mesh)
+    sp = specs.param_shardings(mesh, params, plan_p)
+    prefill = spmd.make_sharded_prefill(model, plan_p, mesh)
+    decode = spmd.make_sharded_decode(model, plan_d, mesh)
     torch.cuda.synchronize()
     _tp_zero()
     logits, cs = prefill(sp, batch)
-    errs = [_greedy_check("tp prefill logits", logits_of(logits), lu, tol)]
+    whole_logits = logits_of(logits)
+    errs = [_greedy_check("tp prefill logits", whole_logits, lu, tol)]
+    exact = [bool(torch.equal(whole_logits, lu))]
     local = {k: v.to_local() for k, v in cs.items()}
     if world == 1:
         errs.append(max(_check(f"tp prefill cache {k}", local[k], cu[k],
                                TOL[torch.bfloat16]) for k in local))
-    whole = _tp_cache(model, cu, b, seed)
-    dc = specs.cache_shardings(mesh, whole, plan)
+        exact.append(all(torch.equal(local[k], cu[k]) for k in local))
+    whole = _tp_cache(model, cu, b, seed, cache_s)
+    if plan_d is not plan_p:
+        sp = specs.param_shardings(mesh, params, plan_d)
+    dc = specs.cache_shardings(mesh, whole, plan_d)
     del whole, local, cs
     _free()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(TP_STEPS):
+    for i in range(steps):
         lens = torch.full((b,), start + i + 1, dtype=torch.int32,
                           device="cuda")
         torch.cuda.synchronize()
@@ -3830,15 +3861,17 @@ def _tp_serve(model, params, mesh, mesh_shape, b: int, seed: int,
         logits, dc = decode(sp, dc, {"tokens": toks[i], "lengths": lens})
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
+        whole_logits = logits_of(logits)
         errs.append(_greedy_check(f"tp decode step {i} logits",
-                                  logits_of(logits), want[i + 1], tol))
+                                  whole_logits, want[i + 1], tol))
+        exact.append(bool(torch.equal(whole_logits, want[i + 1])))
     launches = _tp_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    last = {"tokens": toks[TP_STEPS - 1],
-            "lengths": torch.full((b,), TP_S, dtype=torch.int32,
+    last = {"tokens": toks[steps - 1],
+            "lengths": torch.full((b,), cache_s, dtype=torch.int32,
                                   device="cuda")}
-    return dict(errs=errs, times=times, plain_times=plain_times,
-                launches=launches, peak_gib=peak,
+    return dict(errs=errs, exact=exact, times=times,
+                plain_times=plain_times, launches=launches, peak_gib=peak,
                 step=lambda: decode(sp, dc, last), tol=tol)
 
 
@@ -3856,7 +3889,7 @@ def tp_world_one(mesh, smi: str) -> dict:
                   lambda x: x.to_local())
     want = {"flash_attention": cfg.n_layers,
             "decode_attention": cfg.n_layers * TP_STEPS,
-            "decode_attention_merge": 0}
+            "decode_attention_merge": 0, "ssd_intra_chunk": 0}
     if r["launches"] != want:
         raise AssertionError(f"tp world 1 launches {r['launches']}, "
                              f"expected {want}")
@@ -3928,7 +3961,8 @@ def tp_world_two(smi: str) -> dict:
             r = json.load(f)
     want = {"flash_attention": TP_W2_LAYERS,
             "decode_attention": TP_W2_LAYERS * TP_STEPS,
-            "decode_attention_merge": TP_W2_LAYERS * TP_STEPS}
+            "decode_attention_merge": TP_W2_LAYERS * TP_STEPS,
+            "ssd_intra_chunk": 0}
     if r["launches"] != want:
         raise AssertionError(f"tp world 2 launches {r['launches']}, "
                              f"expected {want}")
@@ -3958,6 +3992,241 @@ def tp_serving_phase(smi: str) -> dict:
     two = tp_world_two(smi)
     log(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s")
     return dict(shares=shares, one=one, two=two)
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism beside a sequence split and over two axes
+# --------------------------------------------------------------------------
+
+# the layouts of the planners (``sharding.plan``): ``seq_tp`` (prefill, the
+# prompt's sequence over "data", tensors over "model"), ``ctx_tp`` and
+# ``ctx_tp_ep`` (decode, the cache's sequence over "data", and over "model"
+# too where the KV heads do not divide it), ``tp_all`` at B = 1 (tensors
+# over ("data", "model")); "dp_tp" as ``tp_plan``
+SP_LAYOUTS = {
+    "seq_tp": dict(batch_axes=(), seq_axes=("data",), tp_axes=("model",)),
+    "ctx_tp": dict(batch_axes=(), seq_axes=("data",), tp_axes=("model",)),
+    "ctx_tp_ep": dict(batch_axes=(), seq_axes=("data",), tp_axes=("model",),
+                      moe_impl="ep_a2a"),
+    "tp_all": dict(batch_axes=(), tp_axes=("data", "model")),
+    "dp_tp": dict(batch_axes=("data",), tp_axes=("model",)),
+}
+# (a) world 1 over NCCL, full width: (arch, layers or None for all, B of
+# the decode, B of the prompt, prompt tokens, cache rows, prefill layout,
+# decode layout).  gemma-2b's decode on ``tp_world_one``'s TP_B x TP_S
+# cache; mamba2-780m after a 4096-token prompt; mixtral-8x7b at the 8 of
+# 32 layers its serving path runs (``check_mixtral``)
+SP_W1_CASES = (
+    ("gemma-2b", None, TP_B, 4, TP_PROMPT, TP_S, "seq_tp", "ctx_tp"),
+    ("mamba2-780m", None, 1, 1, 4096, 4096 + TP_STEPS, "tp_all", "tp_all"),
+    ("mixtral-8x7b", 8, 4, 4, TP_PROMPT, TP_S, "seq_tp", "ctx_tp_ep"))
+# (b) world 4 on the one card (four processes over gloo, a (2, 2) mesh),
+# full width, SP_W4_LAYERS layers, SP_W4_STEPS decode steps: gemma-2b's one
+# KV head puts the decode cache's sequence over all four ranks (a 4-way
+# merge); mixtral-8x7b's heads over "model" and sequence over "data";
+# mamba2-780m's 48 SSM heads over 4 ranks; hymba-1.5b's prompt split over
+# "data" (the scan's state exchange, the SSD kernel on each rank's chunks)
+SP_W4_LAYERS, SP_W4_STEPS, SP_W4_S = 2, 4, 4096
+SP_W4_CASES = (
+    ("gemma-2b", 4, 4, TP_PROMPT, SP_W4_S, "seq_tp", "ctx_tp"),
+    ("mixtral-8x7b", 4, 4, TP_PROMPT, SP_W4_S, "seq_tp", "ctx_tp_ep"),
+    ("mamba2-780m", 1, 1, TP_PROMPT, TP_PROMPT + SP_W4_STEPS, "tp_all",
+     "tp_all"),
+    ("hymba-1.5b", 4, 4, TP_PROMPT, SP_W4_S, "seq_tp", "dp_tp"))
+# (c) the dry-run's serving cells under these layouts on GPU_NODE (full
+# configs, a third serving process)
+DRYRUN_SP_SERVE = (
+    ("gemma-2b", "decode_32k", "ctx_tp"),
+    ("llama-3.2-vision-11b", "decode_32k", "ctx_tp"),
+    ("qwen3-moe-30b-a3b", "decode_32k", "ctx_tp_ep"),
+    ("mixtral-8x7b", "decode_32k", "ctx_tp_ep"),
+    ("gemma3-1b", "long_500k", "ctx_tp"),
+    ("mamba2-780m", "long_500k", "tp_all"),
+    ("hymba-1.5b", "long_500k", "tp_all"),
+    ("gemma3-1b", "long_500k", "tp_all"),
+    ("mixtral-8x7b", "long_500k", "tp_all"))
+
+
+def sp_plan(layout: str, mesh_shape) -> ShardingPlan:
+    """``layout``'s axes (``SP_LAYOUTS``) on a ("data", "model") mesh of
+    ``mesh_shape``."""
+    return ShardingPlan(arch="smoke", shape="serve",
+                        mesh=MeshDesc(("data", "model"), tuple(mesh_shape)),
+                        global_mode="data", local_layout=layout,
+                        **SP_LAYOUTS[layout])
+
+
+def _sp_launches(cfg, steps: int, merges: bool) -> dict:
+    """The kernel calls one rank makes for a prompt and ``steps`` decode
+    steps: a flash call per attention layer of the prompt, an SSD call per
+    mixer, a decode call per attention layer and step, and a merge beside
+    each where the cache's sequence is split over several ranks."""
+    attn = cfg.n_layers if cfg.family != "ssm" else 0
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": attn, "decode_attention": attn * steps,
+            "decode_attention_merge": attn * steps if merges else 0,
+            "ssd_intra_chunk": ssd}
+
+
+def _sp_model(aid: str, layers: int | None):
+    cfg = get_config(aid)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda", dtype=torch.bfloat16)
+    return cfg, model, params
+
+
+def sp_world_one(mesh, smi: str) -> dict:
+    """``SP_W1_CASES`` through the sharded serving steps over NCCL at world
+    1 (``_tp_serve``): every split has width 1, so the logits and the
+    prompt's cache equal the unsharded steps' to the bit; exact launches;
+    the decode step's ms, busy share and peak beside the unsharded step's.
+    """
+    out = {}
+    for aid, layers, b, pb, prompt, cache_s, pl, dl in SP_W1_CASES:
+        cfg, model, params = _sp_model(aid, layers)
+        r = _tp_serve(model, params, mesh, (1, 1), b, 2800, lambda x:
+                      x.to_local(), plans=(sp_plan(pl, (1, 1)),
+                                           sp_plan(dl, (1, 1))),
+                      prefill_b=pb, prompt=prompt, cache_s=cache_s)
+        want = _sp_launches(cfg, TP_STEPS, merges=False)
+        if r["launches"] != want:
+            raise AssertionError(f"{aid} {pl}/{dl} world 1 launches "
+                                 f"{r['launches']}, expected {want}")
+        if not all(r["exact"]):
+            raise AssertionError(f"{aid} {pl}/{dl} world 1: not equal to "
+                                 f"the unsharded steps to the bit "
+                                 f"({r['exact']}, max|err| "
+                                 f"{max(r['errs']):.3e})")
+        p = _profile(r["step"], 1)
+        busy = "not measured" if p is None else \
+            f"{p['device_ms'] / p['wall_ms']:.1%}"
+        log(f"{aid}{'' if layers is None else f' ({layers} layers)'} {pl} "
+            f"prefill (B={pb} x {prompt}) then {dl} decode (B={b} x "
+            f"S={cache_s} cache, {TP_STEPS} steps) at world 1 over NCCL: "
+            f"equal to the unsharded steps to the bit; decode step median "
+            f"{statistics.median(r['times']):.2f} ms (steps "
+            f"{[round(t, 2) for t in r['times']]}; the unsharded step "
+            f"{statistics.median(r['plain_times']):.2f} ms), busy {busy}, "
+            f"peak {r['peak_gib']:.2f} GiB; launches {r['launches']} [{smi}]")
+        r.pop("step")
+        out[aid] = r
+        del params, model
+        _free()
+    return out
+
+
+def _whole(x):
+    """A DTensor whole on every rank: every rank's shard all-gathered by
+    c10d (DTensor's functional all-gather crashes under gloo on CUDA) and
+    put together by its placements, the innermost mesh dim first."""
+    import torch.distributed as dist
+    mesh = x.device_mesh
+    loc = x.to_local().contiguous()
+    out = loc.new_empty((dist.get_world_size(), *loc.shape))
+    dist.all_gather_into_tensor(out, loc[None])
+    t = out.reshape(*mesh.shape, *loc.shape)
+    for i in reversed(range(mesh.ndim)):
+        parts = t.unbind(i)
+        pl = x.placements[i]
+        t = torch.cat(parts, i + pl.dim) if pl.is_shard() else parts[0]
+    return t
+
+
+def sp_world_four_worker(rank: int, d: str) -> None:
+    """One of four ranks on the one card over gloo: ``SP_W4_CASES`` at full
+    width and ``SP_W4_LAYERS`` layers through ``_tp_serve`` on a (2, 2)
+    mesh; each rank writes its errors, times and launches to ``d``."""
+    import logging
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    torch.cuda.set_device(0)
+    _build.build_all(("flash_attention", "decode_attention",
+                      "ssd_intra_chunk"))
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=4)
+    try:
+        mesh = make_smoke_mesh((2, 2), ("data", "model"), device_type="cuda")
+        res = {}
+        for aid, b, pb, prompt, cache_s, pl, dl in SP_W4_CASES:
+            cfg, model, params = _sp_model(aid, SP_W4_LAYERS)
+            r = _tp_serve(model, params, mesh, (2, 2), b, 2900, _whole,
+                          plans=(sp_plan(pl, (2, 2)), sp_plan(dl, (2, 2))),
+                          prefill_b=pb, prompt=prompt, steps=SP_W4_STEPS,
+                          cache_s=cache_s)
+            r.pop("step")
+            res[aid] = r
+            del params, model
+            _free()
+        with open(f"{d}/out_{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_world_four(smi: str) -> dict:
+    """``sp_world_four_worker`` on four processes in one spawn: the
+    four-way merge, the heads-and-sequence cache, the two-axis crossings
+    and the scan's state exchange with the real kernels across ranks,
+    against the unsharded steps at ``TP_LOGITS_TOL[2]``; exact launches on
+    every rank.  A rank's failure fails the phase."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(sp_world_four_worker, args=(d,), nprocs=4,
+                           start_method="spawn")
+        ranks = []
+        for rank in range(4):
+            with open(f"{d}/out_{rank}.json") as f:
+                ranks.append(json.load(f))
+    for aid, b, pb, prompt, cache_s, pl, dl in SP_W4_CASES:
+        cfg = dataclasses.replace(get_config(aid), n_layers=SP_W4_LAYERS)
+        plan = sp_plan(dl, (2, 2))
+        merges = False
+        if cfg.family != "ssm":
+            from repro_torch.sharding import specs
+            sp = specs.cache_specs_tree(plan.mesh, build_model(cfg)
+                                        .cache_specs(ShapeConfig(
+                                            "w4", cache_s, b, "decode")),
+                                        plan)
+            merges = any(specs.axis_sizes(plan.mesh)[a] > 1 for a in
+                         specs._entry_axes(sp["k"][-3]))
+        want = _sp_launches(cfg, SP_W4_STEPS, merges)
+        for rank, res in enumerate(ranks):
+            if res[aid]["launches"] != want:
+                raise AssertionError(f"{aid} {pl}/{dl} world 4 rank {rank} "
+                                     f"launches {res[aid]['launches']}, "
+                                     f"expected {want}")
+        r = ranks[0][aid]
+        log(f"{aid} ({SP_W4_LAYERS} layers) {pl} prefill (B={pb} x {prompt})"
+            f" then {dl} decode (B={b} x S={cache_s}) at world 4 on one card "
+            f"over gloo, (2, 2) mesh: sharded against unsharded max|err| "
+            f"{max(r['errs']):.3e} (tol {r['tol']}, greedy tokens equal "
+            f"save near ties); rank 0's decode steps "
+            f"{[round(t, 2) for t in r['times']]} ms (gloo through the host;"
+            f" unsharded {statistics.median(r['plain_times']):.2f} ms); "
+            f"launches {r['launches']} on each of 4 ranks [{smi}]")
+    log(f"world 4: {time.perf_counter() - t0:.1f} s")
+    return ranks[0]
+
+
+def sp_tp_serving_phase(smi: str) -> dict:
+    """Tensor parallelism beside a sequence split and over two axes:
+    ``SP_W1_CASES`` at world 1 over NCCL, ``SP_W4_CASES`` at world 4 on the
+    card over gloo.  Returns the records."""
+    import logging
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    _free()
+    t0 = time.perf_counter()
+    with world_one() as mesh:
+        one = sp_world_one(mesh, smi)
+    four = sp_world_four(smi)
+    log(f"sequence-split and two-axis tensor-parallel phase: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(one=one, four=four)
 
 
 # --------------------------------------------------------------------------
@@ -4260,6 +4529,10 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     # cache's shares and their merge, gemma-2b through the sharded serving
     # steps at world 1 over NCCL and at world 2 on the card over gloo
     tp = tp_serving_phase(smi)
+    # 8b. tensor parallelism beside a sequence split and over two axes:
+    # seq_tp, ctx_tp, ctx_tp_ep and tp_all at world 1 over NCCL and at
+    # world 4 on the card over gloo
+    sp_tp_serving_phase(smi)
     # 9. tensor-parallel training at world 2 on the card over gloo
     tp_train_world_two(smi)
     dryruns.update(start_serving_dryruns())

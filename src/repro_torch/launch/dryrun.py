@@ -27,12 +27,14 @@ For each cell:
      under the reference's HLO names (``collective_bytes``).
 
 A cell the port has no step for is recorded ``not_ported`` with the reason
-(``not_ported``): tensor parallelism beside a sequence split (``ctx_tp``,
-``seq_tp``) or over two axes (``tp_all`` at B = 1), and a decode cache
-split over ``seq_axes``.  ``plan_gpu`` picks none of these on the GPU
-meshes; only ``--layout`` reaches them.  ``--layout dp_tp`` (or
-``dp_tp_fsdp``, and ``_ep``/``_ep_q8`` for MoE) traces a ``train_4k`` cell
-under tensor parallelism.
+(``not_ported``): training under tensor parallelism beside a sequence split
+(``ctx_tp``, ``seq_tp``) or over two axes (``tp_all``), and a decode cache
+split over ``seq_axes`` without tensor parallelism.  Neither planner offers
+any of these, so every serving cell has its step; ``plan_gpu`` picks
+``ctx_tp``, ``seq_tp`` or ``tp_all`` at B = 1 on neither GPU mesh, and
+``--layout`` reaches them (``--layout ctx_tp --shape decode_32k``).
+``--layout dp_tp`` (or ``dp_tp_fsdp``, and ``_ep``/``_ep_q8`` for MoE)
+traces a ``train_4k`` cell under tensor parallelism.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k

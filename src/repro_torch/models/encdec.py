@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import comm
 from repro_torch.sharding import ctx as shard_ctx
 from . import layers as L
 from .config import ArchConfig
@@ -73,10 +74,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames: (B, T_enc, d_model) stub embeddings → encoder states, through
-    non-causal self-attention (roped q and k)."""
+    non-causal self-attention (roped q and k).  Under a sequence split the
+    frames are this rank's rows: attention gathers keys and values over the
+    split (``layers.attention``), and the states come back whole, gathered
+    over it, for the decoder's cross-attention over every frame."""
     b, t, _ = frames.shape
-    positions = torch.arange(t, device=frames.device)[None].expand(b, t)
-    _no_seq_split(cfg)
+    positions = (torch.arange(t, device=frames.device)
+                 + shard_ctx.seq_offset(t))[None].expand(b, t)
     x = frames.to(L.COMPUTE_DTYPE)
     for p in unstack(params["encoder"]):
         p = shard_ctx.gather_layer(p)
@@ -86,14 +90,9 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
         x = x + a
         x = x + L.mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
         x = shard_ctx.constrain_act(x)
-    return L.apply_norm(cfg, params["enc_norm"], x)
-
-
-def _no_seq_split(cfg: ArchConfig) -> None:
-    if shard_ctx.seq_axes():
-        raise NotImplementedError(
-            f"{cfg.name}: a sequence split of the encoder-decoder; no GPU "
-            "plan asks for one")
+    x = L.apply_norm(cfg, params["enc_norm"], x)
+    group = shard_ctx.seq_group()
+    return x if group is None else comm.all_gather_autograd(x, 1, group)
 
 
 def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
@@ -116,10 +115,11 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             raise ValueError("decode mode needs cache and lengths")
         positions = (lengths - 1)[:, None]
     else:
-        _no_seq_split(cfg)
         if enc is None:
             raise ValueError(f"mode {mode!r} needs the encoder states")
-        positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
+        # under a sequence split, ``tokens`` are this rank's rows
+        positions = (torch.arange(t, device=tokens.device)
+                     + shard_ctx.seq_offset(t))[None].expand(b, t)
     layers = unstack(params["decoder"])
 
     def layer(i, x, lc=None):
@@ -162,7 +162,7 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         new_cache = cache
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_tail is not None:
-        x = x[:, -logits_tail:]
+        x = L.seq_tail(x, logits_tail)
     if return_hidden:
         return x, new_cache
     return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),

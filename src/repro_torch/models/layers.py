@@ -10,27 +10,38 @@ on the CPU.
 Under tensor parallelism (``sharding.ctx.tp()`` published by the sharded
 train, prefill and decode steps) each weight arrives as the shard its spec
 gives it, after ``sanitize``: a leaf whose split dim is narrower than the
-model's is split over the group, one that is not stays whole.  Weights are
-never gathered; activations cross the group instead, where the GSPMD
-partitioning of the reference reshards them.  Every crossing is
+model's is split over the group of the axes its spec names (one tp axis,
+or under ``tp_all`` both, ``data`` alone or ``model`` alone), one that is
+not stays whole.  Weights are never gathered; activations cross the group
+of the leaf's own axes instead (``TPState.split``: never read off a local
+shape, which at (2, 2) cannot tell ``data`` from ``model``), where the
+GSPMD partitioning of the reference reshards them.  Every crossing is
 differentiable (``sharding.comm``'s ``AllGatherFn`` and ``AllReduceFn``; a
 rank's slice of a replicated tensor is a plain view), in the convention
 that each rank's loss is its share of the global loss, so that a replicated
 activation carries a partial gradient:
 
-* a column-split projection's output is all-gathered where the next op
-  needs whole heads or segments (one all-gather for q, k and v together);
+* a column-split projection's output is brought to the split the next op
+  needs: gathered whole (one all-gather per group), then the rank's block
+  of the heads or channels it computes on (``_cols_to``);
 * a row-split projection (``wo``, ``w_down``, ``w_out``, the MoE
-  ``w_down``) takes its rows' slice of its input and its output is
-  all-reduced;
-* attention over a cache split by KV heads runs the rank's own heads; over
-  a cache split along the sequence every rank attends with every head over
-  its share (``k_offset``) and the ranks' (output, log-sum-exp) are
-  merged (``ops.decode_merge``);
+  ``w_down``) takes its rows' block of its input and its output is
+  all-reduced over its rows' group;
+* attention runs the rank's KV heads over the cache's head split
+  (``TPState.kv_heads``); over a cache whose sequence is split
+  (``TPState.kv_seq``: the plan's ``seq_axes`` under ``ctx_tp``, and the
+  tp axes the KV heads do not divide) each rank attends over its share
+  (``k_offset``) and the ranks' (output, log-sum-exp) are merged over that
+  group, which may span both axes (``ops.decode_merge``);
 * the embedding split over the vocab is a masked lookup, all-reduced; the
   head gives the rank's vocab slice of the logits;
 * the Mamba-2 mixer runs its conv on the rank's channels and the scan on
   the rank's heads, and all-reduces the gated RMSNorm's sum of squares.
+
+Under an activation sequence split (``seq_tp``'s ``data``, ``dp_sp_fsdp``'s
+``model``) attention gathers keys and values over it, the Mamba-2 scan
+exchanges the ranks' final states (``_ssd_seq_split``), and the last
+positions' logits come from the last rank (``seq_tail``).
 """
 
 from __future__ import annotations
@@ -116,29 +127,36 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     slice of the sequence and ``positions`` are global: "full" self-attention
     gathers k and v over the split (its backward reduce-scatters their
     gradients) and runs the kernel with the queries offset to their place;
-    the cache entry keeps the rank's own k and v.
+    the cache entry keeps the rank's own k and v (its share of them where
+    the cache's sequence lies over tp axes too).
     """
     b, t, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    # under tensor parallelism: how the caches this call reads lie over the
-    # group ("heads", "seq" or None: see the module's notes)
+    # under tensor parallelism: the KV-head split of the caches this call
+    # reads, and the self-attention cache's sequence split (see the
+    # module's notes)
     tp = shard_ctx.tp()
-    layout = None if tp is None else (
-        tp.xkv if kv_override is not None else tp.kv)
+    heads = seq = shard_ctx.NO_SPLIT
+    if tp is not None:
+        heads = tp.xkv if kv_override is not None else tp.kv_heads
+        seq = tp.kv_seq if kv_override is None else seq
     xc = x.to(COMPUTE_DTYPE)
     q = xc @ p["wq"].to(COMPUTE_DTYPE)
     if kv_override is None:
         k = xc @ p["wk"].to(COMPUTE_DTYPE)
         v = xc @ p["wv"].to(COMPUTE_DTYPE)
-        if layout != "heads":
-            q, k, v = _whole_cols([q, k, v], [hq * hd, hkv * hd, hkv * hd])
+        if tp is not None:
+            q, k, v = _cols_to(
+                [q, k, v], [_wsplit(p["wq"], hq * hd),
+                            _wsplit(p["wk"], hkv * hd),
+                            _wsplit(p["wv"], hkv * hd)], heads)
         q = rope(q.reshape(b, t, -1, hd), positions, cfg.rope_theta)
         k = rope(k.reshape(b, t, -1, hd), positions, cfg.rope_theta)
         v = v.reshape(b, t, -1, hd)
     else:
         k, v = kv_override
-        if layout != "heads":
-            (q,) = _whole_cols([q], [hq * hd])
+        if tp is not None:
+            (q,) = _cols_to([q], [_wsplit(p["wq"], hq * hd)], heads)
         q = q.reshape(b, t, -1, hd)
         if causal:
             q = rope(q, positions, cfg.rope_theta)
@@ -151,13 +169,14 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
         # Written in place: the engine owns the cache, where the JAX engine
         # donates it and rebuilds it functionally with .at[].set — in place
         # saves a copy of the whole (B,S,Hkv,hd) cache per layer and step.
-        if layout == "seq":
+        if seq.size > 1:
             # the rank's share of the sequence: only the rank whose rows
             # hold position len-1 writes, the others write back what the
             # slot holds (a mask on the device, no read of the lengths on
-            # the host); its (out, lse) are merged with the other ranks'
+            # the host); its (out, lse) are merged with the other ranks' of
+            # the sequence group (which may span the data and model axes)
             s_loc = cache["k"].shape[1]
-            off = shard_ctx.k_offset(s_loc)
+            off = seq.rank * s_loc
             slot = slot - off
             own = ((slot >= 0) & (slot < s_loc))[:, None, None]
             slot = slot.clamp(0, s_loc - 1)
@@ -169,7 +188,7 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                                             lengths, window=window,
                                             k_offset=off, return_lse=True)
             out = ops.decode_merge(*comm.all_gather_out_lse(out, lse,
-                                                            tp.group))
+                                                            seq.group))
         else:
             cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
             cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
@@ -190,98 +209,121 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
         out = ops.flash_attention(q, kg, vg, causal=causal, window=window,
                                   q_offset=q_offset, lengths=lengths)
         new_cache = {"k": k, "v": v}
-        if layout == "seq" and kv_override is None:
-            new_cache = {"k": _seq_share(k), "v": _seq_share(v)}
-    y = _row_split_out(out.reshape(b, t, -1), p["wo"], hq * hd)
+        if tp is not None and kv_override is None:
+            new_cache = {"k": _seq_share(k, tp.kv_seq_tp),
+                         "v": _seq_share(v, tp.kv_seq_tp)}
+    y = _row_split_out(out.reshape(b, t, -1), p["wo"], hq * hd, heads)
     return y.to(x.dtype), new_cache
 
 
 # --------------------------------------------------------------------------
 # Tensor parallelism: the activations' crossings
 # --------------------------------------------------------------------------
+#
+# Every crossing names its groups (``sharding.ctx.Group``): a weight's
+# from its sanitized spec (``_wsplit``: ``TPState.split``), an activation's
+# from the split it was computed at.  At (2, 2) under ``tp_all`` a dim
+# split over ``data`` alone has the local shape of one split over
+# ``model`` alone, so no group is read off a shape.
 
-def _split(local: int, full: int) -> bool:
-    """Whether a weight dim of ``full`` entries reached this rank split
-    over the tensor-parallel group (``local`` its share)."""
-    if local == full:
-        return False
-    _, n = shard_ctx.tp_rank_size()
-    if local * n != full:
-        raise ValueError(f"a dim of {local} entries is neither {full} nor "
-                         f"its 1/{n} share")
-    return True
+NO_SPLIT = shard_ctx.NO_SPLIT
 
 
-def _share(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """This rank's equal slice of ``x`` along ``dim`` (a view)."""
-    r, n = shard_ctx.tp_rank_size()
-    m = x.shape[dim] // n
-    return x.narrow(dim, r * m, m)
+def _wsplit(w: torch.Tensor, full: int, dim: int = -1) -> shard_ctx.Group:
+    """The group ``w``'s dim ``dim`` (``full`` entries in the whole weight)
+    is split over; ``NO_SPLIT`` where it came whole or outside tensor
+    parallelism."""
+    tp = shard_ctx.tp()
+    if tp is None:
+        return NO_SPLIT
+    return tp.split(w.shape[dim], full)
 
 
-def _reduce(y: torch.Tensor) -> torch.Tensor:
-    """The sum of the ranks' partial ``y`` (its gradient: the ranks'
+def _share(x: torch.Tensor, dim: int, g: shard_ctx.Group) -> torch.Tensor:
+    """This rank's equal block of ``x`` along ``dim`` over ``g`` (a
+    view)."""
+    if g.size == 1:
+        return x
+    m = x.shape[dim] // g.size
+    return x.narrow(dim, g.rank * m, m)
+
+
+def _reduce(y: torch.Tensor, g: shard_ctx.Group) -> torch.Tensor:
+    """The sum of ``g``'s ranks' partial ``y`` (its gradient: the ranks'
     summed cotangents)."""
-    return comm.all_reduce_autograd(y, shard_ctx.tp().group)
+    return comm.all_reduce_autograd(y, g.group)
 
 
-def _whole_cols(parts: list, fulls: list) -> list:
-    """Each column shard (..., c) of ``parts`` whose ``fulls`` width it
-    falls short of, gathered to (..., n·c) in rank order; one all-gather
-    for all of them (its gradient: each rank's columns of the ranks' summed
-    cotangents).  Parts already whole pass through."""
-    idx = [i for i, (a, f) in enumerate(zip(parts, fulls))
-           if _split(a.shape[-1], f)]
-    if not idx:
-        return list(parts)
-    n = shard_ctx.tp_rank_size()[1]
-    sizes = [parts[i].shape[-1] for i in idx]
-    cat = torch.cat([parts[i] for i in idx], -1)
-    g = comm.all_gather_autograd(cat[None], 0,
-                                 shard_ctx.tp().group)        # (n, ..., c)
+def _whole_cols(parts: list, groups: list) -> list:
+    """Each column block (..., c) of ``parts`` split over its group in
+    ``groups``, gathered to (..., n·c) in the group's rank order: one
+    all-gather per distinct group (its gradient: each rank's columns of the
+    ranks' summed cotangents).  Parts split over no group pass through."""
     out = list(parts)
-    for i, piece in zip(idx, torch.split(g, sizes, -1)):
-        out[i] = torch.movedim(piece, 0, -2).reshape(
-            *piece.shape[1:-1], n * piece.shape[-1])
+    by: dict = {}
+    for i, g in enumerate(groups):
+        if g.size > 1:
+            by.setdefault(g.axes, []).append(i)
+    for idx in by.values():
+        g = groups[idx[0]]
+        sizes = [parts[i].shape[-1] for i in idx]
+        cat = torch.cat([parts[i] for i in idx], -1)
+        gathered = comm.all_gather_autograd(cat[None], 0, g.group)
+        for i, piece in zip(idx, torch.split(gathered, sizes, -1)):
+            out[i] = torch.movedim(piece, 0, -2).reshape(
+                *piece.shape[1:-1], g.size * piece.shape[-1])
     return out
 
 
-def _row_split_out(h: torch.Tensor, w: torch.Tensor, rows: int
-                   ) -> torch.Tensor:
-    """``h`` through ``w`` (``rows`` rows or the rank's share of them):
-    where ``w`` is row-split, the rank's rows of ``h`` (``h`` whole, or
-    already the share) and the partial products all-reduced."""
+def _cols_to(parts: list, srcs: list, dst: shard_ctx.Group) -> list:
+    """Each part, its columns split over its group in ``srcs``, as
+    ``dst``'s block of its whole columns: gathered whole where the groups
+    differ (one all-gather per source group), then sliced; a part already
+    split as ``dst`` passes through."""
+    idx = [i for i, g in enumerate(srcs) if g.axes != dst.axes]
+    whole = _whole_cols([parts[i] for i in idx], [srcs[i] for i in idx])
+    out = list(parts)
+    for i, w in zip(idx, whole):
+        out[i] = _share(w, -1, dst)
+    return out
+
+
+def _row_split_out(h: torch.Tensor, w: torch.Tensor, rows: int,
+                   src: shard_ctx.Group = NO_SPLIT) -> torch.Tensor:
+    """``h`` (its ``rows`` columns split over ``src``) through ``w``
+    (``rows`` rows, or its spec's share of them): ``h`` brought to ``w``'s
+    rows, and where ``w`` is row-split the partial products all-reduced
+    over its group."""
     wc = w.to(COMPUTE_DTYPE)
-    if not _split(w.shape[0], rows):
-        return h @ wc
-    if h.shape[-1] == rows:
-        h = _share(h, -1)
-    return _reduce(h @ wc)
+    g = _wsplit(w, rows, 0)
+    (h,) = _cols_to([h], [src], g)
+    y = h @ wc
+    return y if g.size == 1 else _reduce(y, g)
 
 
 def cross_kv(cfg: ArchConfig, p: dict, src: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The cross-attention keys and values of ``src`` (B, Tk, d), roped
     neither, in head layout (B, Tk, Hkv, hd).  Under tensor parallelism the
-    rank's KV heads where the cross caches are split by heads, else every
-    head (the column shards gathered)."""
+    rank's KV heads over the cross caches' head split, else every head."""
     b, tk, _ = src.shape
     sc = src.to(COMPUTE_DTYPE)
     k = sc @ p["wk"].to(COMPUTE_DTYPE)
     v = sc @ p["wv"].to(COMPUTE_DTYPE)
     tp = shard_ctx.tp()
-    if tp is not None and tp.xkv != "heads":
+    if tp is not None:
         full = cfg.n_kv_heads * cfg.hd
-        k, v = _whole_cols([k, v], [full, full])
+        k, v = _cols_to([k, v], [_wsplit(p["wk"], full),
+                                 _wsplit(p["wv"], full)], tp.xkv)
     return (k.reshape(b, tk, -1, cfg.hd), v.reshape(b, tk, -1, cfg.hd))
 
 
-def _seq_share(k: torch.Tensor) -> torch.Tensor:
-    """The rank's share of a prompt's (B, T, Hkv, hd) keys or values along
-    the sequence, as the cache spec splits it; a length that does not split
-    (an encoder's, whose entry is not kept) stays whole."""
-    _, n = shard_ctx.tp_rank_size()
-    return k if k.shape[1] % n else _share(k, 1)
+def _seq_share(k: torch.Tensor, g: shard_ctx.Group) -> torch.Tensor:
+    """The rank's share over ``g`` of a prompt's (B, T, Hkv, hd) keys or
+    values along the sequence (``T`` this rank's rows under an activation
+    sequence split), as the cache spec splits it; a length that does not
+    split (an encoder's, whose entry is not kept) stays whole."""
+    return k if k.shape[1] % g.size else _share(k, 1, g)
 
 
 # --------------------------------------------------------------------------
@@ -303,7 +345,8 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
             xc @ p["w_up"].to(COMPUTE_DTYPE))
     else:
         h = _act(cfg, xc @ p["w_up"].to(COMPUTE_DTYPE))
-    return _row_split_out(h, p["w_down"], cfg.d_ff).to(x.dtype)
+    return _row_split_out(h, p["w_down"], cfg.d_ff,
+                          _wsplit(p["w_up"], cfg.d_ff)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -338,22 +381,20 @@ def moe_dense(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     w = torch.zeros((b * t, spec.num_experts), dtype=torch.float32,
                     device=x.device).scatter_add_(1, idx.long(), vals)
     # under tensor parallelism the stacks are the rank's experts (E split)
-    # or the rank's expert-FF slice: routed over all E, the rank's partial
-    # sum, all-reduced (GSPMD's dense MoE over sharded stacks)
-    e_loc = p["w_gate"].shape[-3]
-    partial = shard_ctx.tp() is not None and (
-        _split(e_loc, spec.num_experts)
-        or _split(p["w_gate"].shape[-1], spec.d_ff_expert))
-    if partial and e_loc != spec.num_experts:
-        w = _share(w, 1)
+    # or the rank's expert-FF slice, each over the group of its spec's axes:
+    # routed over all E, the rank's partial sum, all-reduced (GSPMD's dense
+    # MoE over sharded stacks)
+    ge = _wsplit(p["w_gate"], spec.num_experts, -3)
+    g = ge if ge.size > 1 else _wsplit(p["w_gate"], spec.d_ff_expert)
+    w = _share(w, 1, ge)
     xc = x2.to(COMPUTE_DTYPE)[None]                          # (1, T, d)
     gate = torch.matmul(xc, p["w_gate"].to(COMPUTE_DTYPE))   # (E, T, f)
     up = torch.matmul(xc, p["w_up"].to(COMPUTE_DTYPE))
     h = _act(cfg, gate) * up
     out_e = torch.matmul(h, p["w_down"].to(COMPUTE_DTYPE))   # (E, T, d)
     y = torch.einsum("etd,te->td", out_e.float(), w)
-    if partial:
-        y = _reduce(y)
+    if g.size > 1:
+        y = _reduce(y, g)
     return y.reshape(b, t, d).to(x.dtype)
 
 
@@ -404,36 +445,47 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     rank's channels (a channel needs only its own weight and context) and
     its output gathered, the scan on the rank's heads of ``h``, the gated
     RMSNorm's sum of squares all-reduced, ``w_out``'s rows and an
-    all-reduce.  Leaves that ``sanitize`` left whole compute whole."""
-    if shard_ctx.seq_axes():
-        raise NotImplementedError(
-            f"{cfg.name}: a sequence split of the SSM scan; no GPU plan asks "
-            "for one")
+    all-reduce, each over the group of its spec's axes.  Leaves that
+    ``sanitize`` left whole compute whole.
+
+    Under a sequence split (prefill and training; ``sharding.ctx.
+    seq_group``) each rank scans its own rows: the conv takes the earlier
+    ranks' last rows as its context, the scan runs from a zero state, and
+    the ranks' final states and total decays, all-gathered, fold into the
+    state entering each rank, whose contribution is added to its output
+    (``_ssd_seq_split``).  The prompt's cache holds the whole sequence's
+    state and conv context on every rank."""
     spec = cfg.ssm
     b, t, d = x.shape
     di, n, nh = spec.d_inner(d), spec.d_state, spec.n_heads(d)
     tp = shard_ctx.tp()
+    seq = shard_ctx.seq_group() if mode != "decode" else None
     xc = x.to(COMPUTE_DTYPE)
     zxbcdt = xc @ p["w_in"].to(COMPUTE_DTYPE)
     if tp is not None:
-        (zxbcdt,) = _whole_cols([zxbcdt], [2 * di + 2 * n + nh])
+        (zxbcdt,) = _cols_to([zxbcdt], [_wsplit(p["w_in"],
+                                                2 * di + 2 * n + nh)],
+                             NO_SPLIT)
     z, xs, B, C, dt = torch.split(zxbcdt, [di, di, n, n, nh], -1)
     conv_in = torch.cat([xs, B, C], -1)
     conv_state = None if cache is None else cache["conv"]
     # the conv context split by channels, the state h by heads, as the
     # cache specs put them (the weights of those dims split alike)
-    conv_split = tp is not None and tp.conv
-    if conv_split:
-        conv_in = _share(conv_in, -1)
+    conv_g = NO_SPLIT if tp is None else tp.conv
+    heads_g = NO_SPLIT if tp is None else tp.ssm_heads
+    conv_in = _share(conv_in, -1, conv_g)
+    if seq is not None:
+        conv_state, last = _seq_conv_context(conv_in, p["conv"].shape[0],
+                                             seq, conv_state)
     conv_out, new_conv = _causal_conv(conv_in, p["conv"].to(COMPUTE_DTYPE),
                                       conv_state)
-    if conv_split:
-        (conv_out,) = _whole_cols([conv_out], [di + 2 * n])
+    if seq is not None:
+        new_conv = last
+    (conv_out,) = _cols_to([conv_out], [conv_g], NO_SPLIT)
     xs, B, C = torch.split(conv_out, [di, n, n], -1)
-    heads = tp is not None and tp.ssm_heads
     xh = xs.reshape(b, t, nh, spec.head_dim)
-    if heads:
-        xh, dt, z = _share(xh, 2), _share(dt, -1), _share(z, -1)
+    xh, dt, z = _share(xh, 2, heads_g), _share(dt, -1, heads_g), \
+        _share(z, -1, heads_g)
     dt = F.softplus(dt.float() + p["dt_bias"].float())      # (B,T,nh)
     A = -torch.exp(p["A_log"].float())
     D = p["D"].float()
@@ -447,34 +499,103 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
         cache["conv"].copy_(new_conv)
         new_cache = cache
     else:
-        y, h_new = ops.ssd(xh, dt, A, B, C, D, chunk=spec.chunk,
-                           h0=None if cache is None else cache["h"])
+        h0 = None if cache is None else cache["h"]
+        if seq is None:
+            y, h_new = ops.ssd(xh, dt, A, B, C, D, chunk=spec.chunk, h0=h0)
+        else:
+            y, h_new = _ssd_seq_split(xh, dt, A, B, C, D, spec.chunk, h0,
+                                      seq)
         new_cache = {"h": h_new, "conv": new_conv}
     y = y.reshape(b, t, -1)
     g = y * F.silu(z.float()).to(y.dtype)
     if tp is None:
-        y = rmsnorm(g, p["norm"])
+        y, src = rmsnorm(g, p["norm"]), NO_SPLIT
     else:
-        y = _gated_norm_tp(g, p["norm"], di, heads)
-    out = _row_split_out(y.to(COMPUTE_DTYPE), p["w_out"], di)
+        y, src = _gated_norm_tp(g, p["norm"], di, heads_g)
+    out = _row_split_out(y.to(COMPUTE_DTYPE), p["w_out"], di, src)
     return out.to(x.dtype), new_cache
 
 
-def _gated_norm_tp(g: torch.Tensor, w: torch.Tensor, di: int, heads: bool
-                   ) -> torch.Tensor:
+def _seq_conv_context(conv_in: torch.Tensor, cw: int, group,
+                      conv_state: torch.Tensor | None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Under a sequence split: (the conv context entering this rank's rows,
+    the context after the last rank's), (B, cw-1, C) each.  The ranks' last
+    min(T, cw-1) rows of ``conv_in`` are all-gathered (differentiably); the
+    context is the last cw-1 rows of ``conv_state`` (zeros without one)
+    followed by the earlier ranks' rows."""
+    b, t, c = conv_in.shape
+    r, _ = shard_ctx.seq_rank_size()
+    k = min(t, cw - 1)
+    tails = comm.all_gather_autograd(conv_in[:, t - k:][None], 0, group)
+    start = (conv_in.new_zeros((b, cw - 1, c)) if conv_state is None
+             else conv_state.to(conv_in.dtype))
+    # slices of one tensor that holds every rank's rows, so that each rank's
+    # graph reaches the gather (its backward, a collective, runs on every
+    # rank alike, rank 0's included)
+    rows = torch.cat([start, *tails.unbind(0)], 1)     # (B, cw-1 + R·k, C)
+    return rows[:, r * k:r * k + cw - 1], rows[:, -(cw - 1):]
+
+
+def _ssd_seq_split(x, dt, A, B, C, D, chunk: int, h0, group
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scan over this rank's rows of a sequence split over
+    ``group``: ``ops.ssd`` from a zero state gives the rank's output and
+    final state h_r; h_r and the rows' total decay exp(A·Σdt) are
+    all-gathered (B·nh·(hd·n+1) values a rank; the gather's gradient a
+    reduce-scatter); the state entering rank r is the fold of ranks < r
+    (from ``h0``, or zeros); its contribution C_t · exp(A·cumsum(dt)_t) ·
+    h_in is added to the output in one einsum.  Returns (y, the state after
+    the last rank, the same on every rank)."""
+    r, n_ranks = shard_ctx.seq_rank_size()
+    y, h_r = ops.ssd(x, dt, A, B, C, D, chunk=chunk)
+    cum = torch.cumsum(dt * A, 1)                         # (B, T, nh)
+    bsz, nhl, hd, n = h_r.shape
+    packed = torch.cat([h_r.float().reshape(bsz, nhl, hd * n),
+                        torch.exp(cum[:, -1])[..., None]], -1)
+    every = comm.all_gather_autograd(packed[None], 0, group)
+    states = every[..., :-1].reshape(n_ranks, bsz, nhl, hd, n)
+    decays = every[..., -1]                               # (R, B, nh)
+    h = (torch.zeros_like(h_r, dtype=torch.float32) if h0 is None
+         else h0.float())
+    h_in = torch.zeros_like(h)
+    for j in range(n_ranks):
+        # picked by a mask, not a branch: every rank's graph then reaches
+        # every rank's state, and the gather's backward (a collective) runs
+        # on all of them alike
+        h_in = h_in + float(j == r) * h
+        h = h * decays[j][..., None, None] + states[j]
+    corr = torch.einsum("btn,bth,bhpn->bthp", C.float(), torch.exp(cum),
+                        h_in)
+    return (y.float() + corr).to(y.dtype), h
+
+
+def _gated_norm_tp(g: torch.Tensor, w: torch.Tensor, di: int,
+                   src: shard_ctx.Group
+                   ) -> tuple[torch.Tensor, shard_ctx.Group]:
     """``rmsnorm`` over the d_inner channels of ``g`` under tensor
-    parallelism: ``g`` whole, or the rank's head channels (``heads``),
-    whose sum of squares is all-reduced; ``w`` whole or the rank's channel
-    slice.  Returns the channels ``w`` covers (``layers.rmsnorm``'s
-    arithmetic)."""
+    parallelism: ``g`` whole, or the rank's head channels over ``src``,
+    whose sum of squares is all-reduced; ``w`` whole or its spec's channel
+    block.  Returns the channels ``w`` covers (``layers.rmsnorm``'s
+    arithmetic) and their group."""
     gf = g.float()
     ss = (gf * gf).sum(-1, keepdim=True)
-    if heads:
-        ss = _reduce(ss)
+    if src.size > 1:
+        ss = _reduce(ss, src)
     scale = torch.rsqrt(ss / di + 1e-6)
-    if not heads and _split(w.shape[-1], di):
-        gf = _share(gf, -1)
-    return ((gf * scale) * (1.0 + w)).to(g.dtype)
+    dst = _wsplit(w, di)
+    (g,) = _cols_to([g], [src], dst)
+    return ((g.float() * scale) * (1.0 + w)).to(g.dtype), dst
+
+
+def seq_tail(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The last ``n`` positions of (B, T, d) hidden states; under a
+    sequence split they are the last rank's, all-gathered from it."""
+    x = x[:, -n:]
+    group = shard_ctx.seq_group()
+    if group is not None:
+        x = comm.all_gather_autograd(x, 0, group)[-x.shape[0]:]
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -487,14 +608,14 @@ def embed(p: dict, tokens: torch.Tensor, vocab: int | None = None
     the vocab split (the rank's ``vocab``/n rows), a lookup masked to the
     rank's rows, all-reduced."""
     e = p["embedding"]
-    if (shard_ctx.tp() is None or vocab is None
-            or not _split(e.shape[0], vocab)):
+    g = NO_SPLIT if vocab is None else _wsplit(e, vocab, 0)
+    if g.size == 1:
         return e[tokens]
-    r, _ = shard_ctx.tp_rank_size()
-    local = tokens.long() - r * e.shape[0]
+    local = tokens.long() - g.rank * e.shape[0]
     mine = (local >= 0) & (local < e.shape[0])
     rows = e[local.clamp(0, e.shape[0] - 1)]
-    return _reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+    return _reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)),
+                   g)
 
 
 def unembed(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,6 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding import comm
 from repro_torch.sharding import ctx as shard_ctx
 from . import layers as L
 from .config import ArchConfig
@@ -363,11 +362,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         new_cache = cache
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_tail is not None:
-        x = x[:, -logits_tail:]
-        group = shard_ctx.seq_group()
-        if group is not None:
-            # under a sequence split the last positions are the last rank's
-            x = comm.all_gather_autograd(x, 0, group)[-b:]
+        x = L.seq_tail(x, logits_tail)
     if return_hidden:
         return x, new_cache
     return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),

@@ -89,13 +89,12 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             raise ValueError("decode mode needs cache and lengths")
         positions = (lengths - 1)[:, None]
     else:
-        if shard_ctx.seq_axes():
-            raise NotImplementedError(
-                f"{cfg.name}: a sequence split of the VLM; no GPU plan asks "
-                "for one")
         if vision is None:
             raise ValueError(f"mode {mode!r} needs the vision embeddings")
-        positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
+        # under a sequence split, ``tokens`` are this rank's rows (the
+        # vision tokens stay whole)
+        positions = (torch.arange(t, device=tokens.device)
+                     + shard_ctx.seq_offset(t))[None].expand(b, t)
     vis = None if vision is None else vision.to(L.COMPUTE_DTYPE)
     selfs = [unstack(g) for g in unstack(params["self"])]
     crosses = unstack(params["cross"])
@@ -150,7 +149,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         new_cache = cache
     x = L.apply_norm(cfg, params["final_norm"], x)
     if logits_tail is not None:
-        x = x[:, -logits_tail:]
+        x = L.seq_tail(x, logits_tail)
     if return_hidden:
         return x, new_cache
     return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),

@@ -4,10 +4,9 @@ mesh of accelerators, with the chip (``V5E`` or ``H100``) a parameter
 ``torch.distributed``: the activation-sharding context (``ctx``), the
 parameter, batch and cache specs and their DTensor placements (``specs``),
 the collectives the model code issues (``comm``), the sharded train step
-(``spmd``: training, prefill and decode, under tensor parallelism over
-one ``tp_axes`` axis too) and the GPipe pipeline (``pipeline``).  Tensor
-parallelism over two axes or beside a sequence split (``tp_all`` at B = 1,
-``ctx_tp``, ``seq_tp``) is not ported yet (``ROADMAP.md``).  The one
+(``spmd``: training, prefill and decode under every layout the planners
+offer, tensor parallelism over two axes or beside a sequence split
+included) and the GPipe pipeline (``pipeline``).  The one
 planning function, ``plan.plan(model, shape, mesh, chip)``, is not
 re-exported here: the name would hide the module."""
 

@@ -19,6 +19,10 @@ all-gather of CUDA tensors crashes the process, its c10d one does not),
 the all-reduce the functional one.  The all-to-all's gradient is the
 reverse all-to-all.  Each is issued on the current stream and waited for
 on the device, without a host sync.
+
+``mesh_group`` gives the process group over several mesh axes at once (a
+tensor-parallel group over ``("data", "model")``, a cache's sequence split
+over both), made once per mesh and kept.
 """
 
 from __future__ import annotations
@@ -29,6 +33,28 @@ import torch
 def _funcol():
     from torch.distributed import _functional_collectives as funcol
     return funcol
+
+
+# (id of the mesh, its axes) -> (the mesh, kept alive so that its id stays
+# its own, and the group)
+_GROUPS: dict = {}
+
+
+def mesh_group(mesh, axes: tuple[str, ...]):
+    """The process group over the mesh axes ``axes`` (in the mesh's order):
+    the axis's own group for one axis, else the flattened sub-mesh's, its
+    ranks data-major (outermost axis first) as a spec entry of several axes
+    orders a dim's shards.  Made on the first call for a mesh, by every
+    rank at once, and kept."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), tuple(axes))
+    if key not in _GROUPS:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        with unset_fake_temporarily():     # the dry-run's fake tensors
+            flat = mesh[tuple(axes)]._flatten("_".join(axes))
+        _GROUPS[key] = (mesh, flat.get_group())
+    return _GROUPS[key][1]
 
 
 def _width(group) -> int:
@@ -123,8 +149,9 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather_out_lse(out: torch.Tensor, lse: torch.Tensor, group
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every rank's decode output (B, 1, Hq, D) and fp32 log-sum-exps
-    (B, Hq), as (B, Hq, R, D) and (B, Hq, R): one all-gather, the
-    log-sum-exps' bytes packed beside the outputs' rows."""
+    (B, Hq) over ``group`` (any group: one axis, or several flattened), as
+    (B, Hq, R, D) and (B, Hq, R) in the group's rank order: one all-gather,
+    the log-sum-exps' bytes packed beside the outputs' rows."""
     b, _, hq, d = out.shape
     packed = torch.cat([out.reshape(b, hq, d),
                         lse.contiguous().view(out.dtype).reshape(b, hq, -1)],

@@ -19,15 +19,19 @@ reference's ``shard_map`` bodies do, and publishes two more things here:
 
 The tensor-parallel steps (``spmd.make_sharded_grad_fn``,
 ``make_sharded_prefill`` and ``make_sharded_decode``) publish a ``TPState``
-(``tensor_parallel``): the group of the plan's ``tp_axes`` with this rank's
-index and its width, and how the caches lie over it, read from
-``specs.cache_pspec`` after ``sanitize`` on the caches' real shapes (a
-train step reads the layout of the cache its batch's prompt would build,
-so that its layers split as the prefill's do).  The layers read it
-(``layers``): each weight computes on the shard its spec gives it, and
-activations cross the group where a split cuts through heads.  Without it
-every accessor gives the unsplit answer (width 1, offset 0), so every other
-path is unchanged.
+(``tensor_parallel``): explicit ``Group``s (process group, this rank's
+index, width) for the plan's ``tp_axes`` (one axis, or two under
+``tp_all``), for each weight dim's split (``TPState.dim``: the axes its
+sanitized spec names), and for the caches' head and sequence splits, read
+from ``specs.cache_pspec`` after ``sanitize`` on the caches' real shapes
+(a train step reads the layout of the cache its batch's prompt would
+build, so that its layers split as the prefill's do).  A cache's sequence
+may lie over the plan's ``seq_axes`` and the tp axes at once (``ctx_tp``,
+``tp_all``).  The layers read it (``layers``): each weight computes on the
+shard its spec gives it, and activations cross the group of the axes its
+spec names where a split cuts through heads.  Without it every accessor
+gives the unsplit answer (width 1, offset 0), so every other path is
+unchanged.
 """
 
 from __future__ import annotations
@@ -128,8 +132,9 @@ def _seq_axis() -> str | None:
     axes = seq_axes()
     if len(axes) > 1:
         raise NotImplementedError(
-            f"a sequence split over several axes {axes}: no GPU plan asks "
-            "for one")
+            f"an activation sequence split over several axes {axes}: no "
+            "plan of either planner asks for one (a cache's sequence may "
+            "lie over several: ``TPState.kv_seq``)")
     return axes[0] if axes else None
 
 
@@ -160,22 +165,73 @@ def seq_offset(t_local: int) -> int:
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class TPState:
-    """The tensor-parallel layout a step runs under.
+class Group:
+    """A group of mesh axes: its process group, this rank's index in it and
+    its width.  The ranks are data-major (the outermost axis first), as a
+    spec entry of several axes orders a dim's shards (``specs.
+    placements``), so that rank i of the group holds a split dim's i-th
+    block.  ``Group()`` is no split: width 1, no process group."""
+    axes: tuple[str, ...] = ()
+    group: Any = None
+    rank: int = 0
+    size: int = 1
 
-    ``kv``: the self-attention cache ``k``/``v`` split over the group by its
-    KV heads ("heads"), by its sequence ("seq": this rank holds rows
-    [rank·S, (rank+1)·S) of the whole), or whole on every rank (None).
-    ``xkv``: the cross caches ``xk``/``xv``, "heads" or None.  ``ssm_heads``
-    and ``conv``: the SSM state ``h`` split by heads, the conv context by
-    channels."""
-    group: Any
-    rank: int
-    size: int
-    kv: str | None = None
-    xkv: str | None = None
-    ssm_heads: bool = False
-    conv: bool = False
+
+NO_SPLIT = Group()
+
+
+@dataclasses.dataclass(frozen=True)
+class TPState:
+    """The tensor-parallel layout a step runs under, as explicit groups.
+
+    ``tp``: the group over all the plan's ``tp_axes`` (one axis, or
+    ``("data", "model")`` under ``tp_all``).  A weight dim the parameter
+    rules give to the tp axes lies over the axes that ``sanitize`` leaves of
+    them for its width (``split``): over both, over one of them, or whole;
+    at (2, 2) a dim split over ``data`` alone has the shape of one split
+    over ``model`` alone, so the group comes from the spec, never from the
+    shape.
+
+    The caches, as ``specs.cache_pspec`` puts them after ``sanitize``:
+    ``kv_heads`` the self-attention ``k``/``v`` split by KV heads;
+    ``kv_seq`` their sequence split (the plan's ``seq_axes``, then the tp
+    axes the KV heads do not divide: this rank holds rows [rank·S,
+    (rank+1)·S) of the whole); ``kv_seq_tp`` the part of ``kv_seq`` that
+    the activations' own sequence split does not cover (a prompt's rows
+    are shared over it as its cache is written).  ``xkv`` the cross caches
+    ``xk``/``xv`` by heads; ``ssm_heads`` the SSM state ``h`` by heads;
+    ``conv`` the conv context by channels."""
+    mesh: Any
+    tp: Group
+    groups: Any = dataclasses.field(default=None, compare=False)
+    kv_heads: Group = NO_SPLIT
+    kv_seq: Group = NO_SPLIT
+    kv_seq_tp: Group = NO_SPLIT
+    xkv: Group = NO_SPLIT
+    ssm_heads: Group = NO_SPLIT
+    conv: Group = NO_SPLIT
+
+    def dim(self, full: int) -> Group:
+        """The group of a weight dim of ``full`` entries that the parameter
+        rules split over the tp axes: the axes its sanitized spec entry
+        names (every rule gives such a dim the entry ``tp_axes``, and
+        ``sanitize`` reads only the dim's own width)."""
+        from .specs import Spec, _ax, _entry_axes, sanitize
+        entry = sanitize(self.mesh, Spec(_ax(self.tp.axes)), (full,))[0]
+        return self.groups[_entry_axes(entry)]
+
+    def split(self, local: int, full: int) -> Group:
+        """The group a weight dim of ``full`` entries that reached this
+        rank with ``local`` of them is split over: none where it came whole
+        (a rule that leaves the dim to other axes: the expert-FF dim beside
+        split experts), else ``dim(full)``, checked against ``local``."""
+        if local == full:
+            return NO_SPLIT
+        g = self.dim(full)
+        if local * g.size != full:
+            raise ValueError(f"a dim of {local} entries is neither {full} "
+                             f"nor its 1/{g.size} share over {g.axes}")
+        return g
 
 
 @contextlib.contextmanager
@@ -194,22 +250,6 @@ def tp() -> TPState | None:
     return _TP
 
 
-def tp_rank_size() -> tuple[int, int]:
-    """(this rank's index in the tensor-parallel group, its width); (0, 1)
-    without one."""
-    return (0, 1) if _TP is None else (_TP.rank, _TP.size)
-
-
-def k_offset(s_local: int) -> int:
-    """The global position of this rank's first self-attention cache row,
-    for a share of ``s_local`` rows."""
-    if _TP is None or _TP.kv != "seq":
-        return 0
-    return _TP.rank * s_local
-
-
 def kv_len(s_local: int) -> int:
     """The whole self-attention cache's length, from this rank's share."""
-    if _TP is None or _TP.kv != "seq":
-        return s_local
-    return s_local * _TP.size
+    return s_local if _TP is None else s_local * _TP.kv_seq.size

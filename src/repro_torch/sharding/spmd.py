@@ -3,10 +3,10 @@
 ``jax.jit(prefill | decode, in_shardings=..., out_shardings=...)``
 (``launch/dryrun.py``).
 
-The train step covers every training plan with at most one ``tp_axes``
-axis and no sequence split beside it (data parallelism, FSDP, the sequence
-split with expert parallelism, and ``dp_tp``, ``dp_tp_fsdp`` and their
-``_ep``/``_ep_q8`` variants):
+The train step covers every training plan the planners offer: at most one
+``tp_axes`` axis and no sequence split beside it (data parallelism, FSDP,
+the sequence split, with expert parallelism too, and ``dp_tp``,
+``dp_tp_fsdp`` and their ``_ep``/``_ep_q8`` variants):
 
 * Parameters and optimizer state are DTensors placed by ``specs``: that is
   the memory layout.  The batch is each rank's shard of it
@@ -39,18 +39,26 @@ split with expert parallelism, and ``dp_tp``, ``dp_tp_fsdp`` and their
   (``optimizer.global_norm``).  ``make_sharded_grad_fn`` gives the loss
   and the gradients without the update.
 
-Tensor parallelism over two axes (``tp_all`` at B = 1) or beside a sequence
-split (``ctx_tp``, ``seq_tp``) raises ``NotImplementedError``
-(``require_ported_layout``).
+Training under tensor parallelism beside a sequence split (``ctx_tp``,
+``seq_tp``) or over two axes (``tp_all``) raises ``NotImplementedError``
+(``require_ported_layout``): neither planner offers those layouts for
+training.  The sequence split of the SSM scan (``dp_sp_fsdp`` for the
+``ssm`` and ``hybrid`` families) runs (``layers.mamba_block``).
 
 The serving steps (``make_sharded_prefill``, ``make_sharded_decode``) cover
-every prefill or decode plan whose ``tp_axes`` are one mesh axis and whose
-``seq_axes`` are empty (``dp_tp``, ``dp_tp_fsdp``, their ``_ep``/``_ep_q8``
-variants, ``tp_all`` at B > 1), and the plans without ``tp_axes``.  The
-parameters (bf16) and caches are DTensors placed by ``specs``; the step
-publishes the plan and a ``ctx.TPState`` (the tp group, and how the caches
-lie over it after ``sanitize``) and runs the model on local tensors under
-``torch.no_grad()``.  The logits come back as a DTensor under
+every prefill and decode layout the planners offer: ``dp_tp``,
+``dp_tp_fsdp`` and their ``_ep``/``_ep_q8`` variants, ``dp_sp_fsdp``,
+``seq_tp`` (the prompt's sequence over ``data`` beside tensors over
+``model``), ``ctx_tp`` and its ``_ep``/``_ep_q8`` variants (the decode
+cache's sequence over ``data``, and over ``model`` too where the KV heads
+do not divide it), ``tp_all`` (tensors over ``("data", "model")`` at
+B = 1, over ``model`` above), and the plans without ``tp_axes``.  A decode
+cache split over ``seq_axes`` without tensor parallelism, which no plan
+offers, raises.  The parameters (bf16) and caches are DTensors placed by
+``specs``; the step publishes the plan and a ``ctx.TPState`` (the groups of
+the tp axes, of each weight dim's split and of the caches' head and
+sequence splits, read after ``sanitize``) and runs the model on local
+tensors under ``torch.no_grad()``.  The logits come back as a DTensor under
 ``specs.logits_pspec``, the cache as DTensors in its own placements,
 updated in place at decode.
 """
@@ -76,29 +84,40 @@ EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 def require_ported_layout(plan: ShardingPlan, kind: str) -> None:
     """Raises for the layouts the steps of ``kind`` ("train", "prefill" or
-    "decode") do not cover: tensor parallelism over two axes (``tp_all`` at
-    B = 1) or beside a sequence split (``ctx_tp``, ``seq_tp``), and a
-    decode cache split over ``seq_axes``."""
+    "decode") do not cover, none of which either planner offers
+    (``sharding.plan``): training under tensor parallelism beside a
+    sequence split (``ctx_tp``, ``seq_tp``) or over two axes (``tp_all``),
+    and a decode cache split over ``seq_axes`` without tensor parallelism.
+    Every prefill and decode layout the planners offer passes."""
     if kind == "decode" and plan.seq_axes and not plan.tp_axes:
         raise NotImplementedError(
             f"layout {plan.local_layout!r} splits the decode cache over "
-            f"seq_axes {plan.seq_axes}: not ported")
+            f"seq_axes {plan.seq_axes} without tensor parallelism: no plan "
+            "offers it, not ported")
+    if kind != "train":
+        return
     if len(plan.tp_axes) > 1:
         raise NotImplementedError(
-            f"layout {plan.local_layout!r} splits tensors over two axes "
-            f"{plan.tp_axes}: not ported")
+            f"layout {plan.local_layout!r} trains with tensors split over "
+            f"two axes {plan.tp_axes}: no plan offers it for training, not "
+            "ported")
     if plan.tp_axes and plan.seq_axes:
         raise NotImplementedError(
-            f"layout {plan.local_layout!r} adds a sequence split over "
-            f"{plan.seq_axes} to tensor parallelism over {plan.tp_axes}: "
-            "not ported")
+            f"layout {plan.local_layout!r} trains with a sequence split "
+            f"over {plan.seq_axes} beside tensor parallelism over "
+            f"{plan.tp_axes}: no plan offers it for training, not ported")
 
 
-def act_specs(plan: ShardingPlan) -> tuple[specs.Spec, specs.Spec]:
+def act_specs(plan: ShardingPlan, decode: bool = False
+              ) -> tuple[specs.Spec, specs.Spec]:
     """The activation (B, T, d) and logits (B, T, V) specs the plan
-    publishes (the reference's ``dryrun._plan_act_specs``)."""
+    publishes (the reference's ``dryrun._plan_act_specs``).  At decode the
+    sequence entry is dropped: ``ctx_tp`` names ``data`` there, on a T of
+    1 that no split divides (the reference's constraint fails and is
+    skipped), and nothing may treat the decode token as split."""
     ax = specs._ax
-    return (specs.Spec(ax(plan.batch_axes), ax(plan.seq_axes), None),
+    seq = None if decode else ax(plan.seq_axes)
+    return (specs.Spec(ax(plan.batch_axes), seq, None),
             specs.Spec(ax(plan.batch_axes), None, ax(plan.tp_axes)))
 
 
@@ -144,10 +163,9 @@ class _Gather:
         self.replicate = tuple(Replicate() for _ in names)
         self.grad = tuple(Partial() if a in toks else Replicate()
                           for a in names)
-        # under tensor parallelism every leaf keeps its shard over the tp
-        # axis; only its FSDP dims are gathered
-        self.tp_dim = (names.index(plan.tp_axes[0]) if plan.tp_axes
-                       else None)
+        # under tensor parallelism every leaf keeps its shards over the tp
+        # axes; only its FSDP dims are gathered
+        self.tp_dims = tuple(names.index(a) for a in plan.tp_axes)
         # the mesh dim the expert stacks keep their experts split over
         self.ep_dim = None
         if num_experts and plan.moe_impl in ("ep_a2a", "ep_a2a_q8"):
@@ -158,15 +176,16 @@ class _Gather:
     def compute(self, path: tuple, leaf) -> tuple[tuple, tuple]:
         """(compute placements, gradient placements) of a layer's leaf; the
         expert dim of an expert stack is its third from last."""
-        if self.tp_dim is not None:
+        if self.tp_dims:
             from torch.distributed.tensor import Partial
-            own = leaf.placements[self.tp_dim]
             pl, gp = list(self.replicate), list(self.grad)
-            pl[self.tp_dim] = own
-            # a shard's gradient is whole over the group (the crossings'
-            # backward brings every rank's part); a replicated leaf's, like a
-            # replicated activation's, is each rank's partial
-            gp[self.tp_dim] = own if own.is_shard() else Partial()
+            for i in self.tp_dims:
+                own = leaf.placements[i]
+                pl[i] = own
+                # a shard's gradient is whole over the group (the crossings'
+                # backward brings every rank's part); a replicated leaf's,
+                # like a replicated activation's, is each rank's partial
+                gp[i] = own if own.is_shard() else Partial()
             return tuple(pl), tuple(gp)
         if (self.ep_dim is not None and "moe" in path
                 and path[-1] in EXPERT_STACKS):
@@ -188,10 +207,11 @@ class _Gather:
 
 
 @contextlib.contextmanager
-def local_view(mesh, plan: ShardingPlan, gather: _Gather):
+def local_view(mesh, plan: ShardingPlan, gather: _Gather,
+               decode: bool = False):
     """The plan's specs, mesh and EP axis published, and the per-layer
     gather installed, for the model code's run on local tensors."""
-    act, logits = act_specs(plan)
+    act, logits = act_specs(plan, decode)
     with shard_ctx.plan_specs(act, logits, mesh=mesh,
                               ep_axis=ep_axis_of(mesh, plan)), \
             shard_ctx.layer_gather(gather):
@@ -220,10 +240,6 @@ def make_sharded_grad_fn(model, plan: ShardingPlan, mesh) -> Callable:
     sizes = specs.axis_sizes(mesh)
     n_tp = sizes[plan.tp_axes[0]] if plan.tp_axes else 1
     num_experts = cfg.moe.num_experts if cfg.moe is not None else None
-    if plan.seq_axes and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: a sequence split of the SSM scan; no GPU plan "
-            "asks for one")
 
     def grads_of(params, batch, gather, tp, frac):
         """(this rank's share of the loss, gradients as DTensors)."""
@@ -304,28 +320,56 @@ def _sum_over_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
 # Serving: the sharded prefill and decode steps
 # --------------------------------------------------------------------------
 
+def axes_group(mesh, axes: tuple[str, ...]) -> shard_ctx.Group:
+    """The ``ctx.Group`` of the mesh axes ``axes``: its process group
+    (``comm.mesh_group``), this rank's data-major index and the width."""
+    if not axes:
+        return shard_ctx.NO_SPLIT
+    names = list(mesh.mesh_dim_names)
+    idx = [names.index(a) for a in axes]
+    if idx != sorted(idx):
+        raise NotImplementedError(
+            f"axes {axes} are not in the mesh's order {tuple(names)}")
+    rank, size = 0, 1
+    for i in idx:
+        rank = rank * mesh.shape[i] + mesh.get_local_rank(i)
+        size *= mesh.shape[i]
+    return shard_ctx.Group(axes=tuple(axes),
+                           group=comm.mesh_group(mesh, tuple(axes)),
+                           rank=rank, size=size)
+
+
 def tp_state(mesh, plan: ShardingPlan, cache: dict
              ) -> shard_ctx.TPState | None:
     """The tensor-parallel state of a step over ``cache`` (whole shapes:
-    DTensors, or ``meta`` stand-ins of a prompt's cache): the tp
-    group, this rank, and where ``specs.cache_specs_tree`` (after
-    ``sanitize``) puts the tp axis in each cache leaf.  None without
+    DTensors, or ``meta`` stand-ins of a prompt's cache): the group of the
+    tp axes and of each of their sub-sets in the mesh's order (the weight
+    dims' splits), and where ``specs.cache_specs_tree`` (after
+    ``sanitize``) splits each cache leaf: the KV heads, the KV sequence
+    (the plan's ``seq_axes`` and the tp axes the heads do not divide), the
+    cross caches' heads, the SSM heads and the conv channels.  None without
     ``tp_axes``."""
     if not plan.tp_axes:
         return None
-    axis = plan.tp_axes[0]
     names = list(mesh.mesh_dim_names)
-    i = names.index(axis)
+    tp_axes = tuple(sorted(plan.tp_axes, key=names.index))
+    subsets = [tuple(a for j, a in enumerate(tp_axes) if m >> j & 1)
+               for m in range(1 << len(tp_axes))]
+    groups = {sub: axes_group(mesh, sub) for sub in subsets}
     sp = specs.cache_specs_tree(mesh, cache, plan)
 
-    def on(name: str, dim: int) -> bool:
-        return name in sp and axis in specs._entry_axes(sp[name][dim])
+    def on(name: str, dim: int) -> shard_ctx.Group:
+        if name not in sp:
+            return shard_ctx.NO_SPLIT
+        return axes_group(mesh, specs._entry_axes(sp[name][dim]))
 
-    kv = "heads" if on("k", -2) else "seq" if on("k", -3) else None
+    seq = on("k", -3)
     return shard_ctx.TPState(
-        group=mesh.get_group(axis), rank=mesh.get_local_rank(i),
-        size=mesh.shape[i], kv=kv, xkv="heads" if on("xk", -2) else None,
-        ssm_heads=on("h", -3), conv=on("conv", -1))
+        mesh=mesh, tp=groups[tp_axes], groups=groups,
+        kv_heads=on("k", -2), kv_seq=seq,
+        kv_seq_tp=axes_group(mesh, tuple(a for a in seq.axes
+                                         if a not in plan.seq_axes)),
+        xkv=on("xk", -2), ssm_heads=on("h", -3), conv=on("conv", -1))
 
 
 def prompt_cache_meta(model, batch: dict) -> dict:
@@ -456,7 +500,7 @@ def make_sharded_decode(model, plan: ShardingPlan, mesh) -> Callable:
         ps, gather, tp, _ = setup(params, batch, cache)
         local = local_batch(mesh, batch, plan)
         lc = {k: v.to_local() for k, v in cache.items()}
-        with torch.no_grad(), local_view(mesh, plan, gather), \
+        with torch.no_grad(), local_view(mesh, plan, gather, decode=True), \
                 shard_ctx.tensor_parallel(tp):
             logits, _ = model.apply_decode(ps, lc, local,
                                            moe_impl=plan.moe_impl)

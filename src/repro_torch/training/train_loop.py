@@ -36,8 +36,9 @@ def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def _ce(logits: torch.Tensor, targets: torch.Tensor,
         vocab: int | None = None) -> torch.Tensor:
     """The cross entropy at every position.  Where ``logits`` are this
-    rank's slice of a ``vocab`` split over the tensor-parallel group (rank
-    r holds ids [r·V/n, (r+1)·V/n)), the log-sum-exp and the gold logit
+    rank's slice of a ``vocab`` split over the tensor-parallel axes its
+    spec names (``TPState.split``; rank r of that group holds ids
+    [r·V/n, (r+1)·V/n)), the log-sum-exp and the gold logit
     reduce over the group: the max all-reduced as a max (a constant to
     autograd), then the sum of exponentials and the gold logit (a gather
     masked to the rank's ids) in one all-reduce.  Each rank's value is the
@@ -46,16 +47,14 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor,
     vl = logits.shape[-1]
     if tp is None or vocab is None or vl == vocab:
         return torch.logsumexp(logits, dim=-1) - _gold(logits, targets)
-    if vl * tp.size != vocab:
-        raise ValueError(f"logits of {vl} ids are neither the vocab "
-                         f"{vocab} nor its 1/{tp.size} share")
-    m = comm.all_reduce(logits.detach().amax(-1), tp.group, "max")
-    local = targets.long() - tp.rank * vl
+    g = tp.split(vl, vocab)
+    m = comm.all_reduce(logits.detach().amax(-1), g.group, "max")
+    local = targets.long() - g.rank * vl
     mine = (local >= 0) & (local < vl)
     gold = torch.where(mine, _gold(logits, local.clamp(0, vl - 1)), 0.0)
     sums = comm.all_reduce_autograd(
         torch.stack([torch.exp(logits - m[..., None]).sum(-1), gold]),
-        tp.group)
+        g.group)
     return m + torch.log(sums[0]) - sums[1]
 
 

@@ -7,9 +7,11 @@ and whose FLOPs per GPU must agree with the analytic ``step_flops``; the
 GPipe pipeline under ``force_global="model"``; training under ``tp_axes``
 (``dp_tp``, ``dp_tp_fsdp``, qwen3's ``dp_tp_ep``); the tensor-parallel
 serving cells (a decode cell over its cache, a prefill cell), a decode
-cell under a forced ``P1_pure_dp`` with its cache among the arguments; and
-a layout the port has no step for (``ctx_tp`` training) recorded
-``not_ported``.  No process group outlives a cell.
+cell under a forced ``P1_pure_dp`` with its cache among the arguments; the
+serving cells beside a sequence split or over two axes (``ctx_tp``,
+``ctx_tp_ep``, ``tp_all`` at B = 1, ``seq_tp``); and a layout the port has
+no step for (``ctx_tp`` training) recorded ``not_ported``.  No process
+group outlives a cell.
 """
 
 import dataclasses
@@ -240,3 +242,43 @@ def test_serving_cell_at_fake_world(aid, shape_name, layout):
 def test_inapplicable_cell_is_skipped():
     rec = dryrun.run_cell("gemma-2b", "long_500k", False, out_dir=None)
     assert rec["status"] == "skipped"
+
+
+SPLIT_SERVING_CELLS = [("gemma-2b", "decode_32k", "ctx_tp"),
+                       ("mixtral-8x7b", "decode_32k", "ctx_tp_ep"),
+                       ("mamba2-780m", "long_500k", "tp_all"),
+                       ("gemma-2b", "prefill_b4", "seq_tp")]
+
+
+@pytest.mark.parametrize("aid,shape_name,layout", SPLIT_SERVING_CELLS)
+def test_serving_cell_beside_a_sequence_split_or_over_two_axes(
+        aid, shape_name, layout):
+    """The serving layouts that put a sequence split beside tensor
+    parallelism (``ctx_tp``, its ``_ep`` variant, ``seq_tp`` on a prefill
+    of B = 4) or split tensors over two axes (``tp_all`` at B = 1) trace at
+    the fake world of ``GPU_NODE``: ``not_ported`` is None, the arguments
+    are one rank's shards, the cache's included, and the steps cross the
+    tp group."""
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_config(aid).reduced()
+    model = build_model(cfg)
+    shape = (ShapeConfig(shape_name, 1024, 4, "prefill")
+             if shape_name == "prefill_b4" else SHAPES[shape_name])
+    plan = plan_gpu(model, shape, GPU_NODE, force_layout=layout)
+    assert plan.local_layout == layout
+    assert dryrun.not_ported(plan, shape) is None
+    prev = kernel_ops.get_backend()
+    kernel_ops.set_backend("blocked")
+    try:
+        with dryrun.fake_world(GPU_NODE) as mesh:
+            rec = dryrun.trace_cell(model, shape, plan, mesh)
+    finally:
+        kernel_ops.set_backend(prev)
+    assert rec["memory"]["argument_bytes"] == _serving_bytes(
+        model, shape, plan, GPU_NODE)
+    assert rec["memory"]["peak_per_device"] >= rec["memory"][
+        "argument_bytes"]
+    assert rec["cost"]["attention_flops"] > 0 or cfg.family == "ssm"
+    coll = rec["collectives"]
+    assert coll["all-reduce"] > 0 and coll["all-gather"] > 0, coll

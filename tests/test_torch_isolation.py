@@ -483,19 +483,20 @@ if __name__ == "__main__":
     tpt = dryrun.run_cell("gemma-2b", "train_4k", False, out_dir=None,
                           cfg=get_config("gemma-2b").reduced(),
                           force_layout="dp_tp")
-    no = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None,
-                         force_layout="ctx_tp")
-    print("DRYRUN", ok["status"], tp["status"], tpt["status"], no["status"],
-          "BAD", bad())
+    ctx = dryrun.run_cell("gemma-2b", "decode_32k", False, out_dir=None,
+                          cfg=get_config("gemma-2b").reduced(),
+                          force_layout="ctx_tp")
+    print("DRYRUN", ok["status"], tp["status"], tpt["status"],
+          ctx["status"], "BAD", bad())
 """
 
 
 def test_multi_gpu_layer_runs_where_jax_and_repro_cannot_import(tmp_path):
     """``moe_ep``'s all-to-all, the sharded step, the pipeline and the
     tensor-parallel serving and train steps on gloo ranks, and the dry-run
-    on the fake process group (a tensor-parallel train cell traced, a
-    ``ctx_tp`` cell refused), with jax, ``repro`` and ``msgpack`` refused
-    at import in every process."""
+    on the fake process group (a tensor-parallel train cell and a
+    ``ctx_tp`` decode cell traced), with jax, ``repro`` and ``msgpack``
+    refused at import in every process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT / "src")
     script = tmp_path / "multi_without_jax.py"
@@ -507,4 +508,4 @@ def test_multi_gpu_layer_runs_where_jax_and_repro_cannot_import(tmp_path):
         out.stdout
     assert "TP (2, 2, 8, 1, 16) (2, 1, 256) True True" in out.stdout, \
         out.stdout
-    assert "DRYRUN ok ok ok not_ported BAD []" in out.stdout, out.stdout
+    assert "DRYRUN ok ok ok ok BAD []" in out.stdout, out.stdout
