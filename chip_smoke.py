@@ -37,7 +37,10 @@ each of which exits non-zero when it fails:
    too, and the whole scan's gradients through it against autograd of
    ``ref.ssd_chunked``, with and without an incoming state; then each
    backward launch's device time by kernel name at the two training
-   shapes of each backward kernel (``torch.profiler``);
+   shapes of each backward kernel (``torch.profiler``), and decode's two
+   launches (split, combine) by name at gemma-2b's serving decode shape
+   and at one share of ``decode_32k`` beside the whole call's time, the
+   merge's at 2, 4 and 8 ranks beside its bound, and an empty launch's;
 3. calibrate and plan, the paper's analyzer loop: ``Profiler.profile_kernels``
    on ``cuda:0`` sweeps the three kernels through ``ops`` in fp32 at the JAX
    package's ``DEFAULT_KERNEL_SHAPES`` and the serving shapes timed in 5,
@@ -198,8 +201,17 @@ each of which exits non-zero when it fails:
    ``decode_attention.merge``, against the kernel on the whole cache and
    ``ref.decode_attention_naive`` at the bf16 ``TOL`` and each (sequence,
    head) row within 1e-2 by relative norm (``TP_ROW_RTOL``), with gemma-2b's
-   heads and with gemma3-1b's at its window of 512; one share at full
-   lengths and the merge timed beside their bounds; gemma-2b at full width
+   heads and with gemma3-1b's at its window of 512; the combine kernel at
+   both its call sites, at each head dim of the kernels' dispatch list in
+   bf16 and fp32: the decode call at the shapes whose ``split_plan`` gives
+   2, 9, 32 and 128 splits (``COMBINE_SPLITS``; random lengths that leave
+   splits empty, an empty row) against ``ref.decode_attention_split`` and
+   ``ref.decode_attention_naive`` at ``TOL`` and its LSE against the split
+   version's, and the merge of 1, 2, 4 and 8 ranks (``MERGE_RANKS``; a
+   quarter of the ranks empty, rows where every rank is) against
+   ``ref.decode_merge`` at ``TOL`` and per row at ``TP_ROW_RTOL``, an empty
+   row exactly 0; one share at full lengths and the merge timed beside
+   their bounds; gemma-2b at full width
    and depth through ``spmd.make_sharded_prefill`` and
    ``make_sharded_decode`` under ``dp_tp`` at world 1 over NCCL (B=16 x
    S=32768 of cache, a 1024-token prompt, 8 decode steps): logits equal
@@ -2344,6 +2356,63 @@ def _by_name(r: dict | None) -> str:
     return "; ".join(f"{k[:40]} {v:.4f} ms" for k, v in r["by_name"].items())
 
 
+def decode_launch_times(smi: str) -> None:
+    """Decode's two launches (split, combine), each its own device time by
+    kernel name (``torch.profiler`` over 20 calls back to back, ms a
+    call), beside the whole call's device time (CUDA events, queued, L2
+    flushed before each call) at gemma-2b's serving decode shape (B=4,
+    S=1024, the engine's lengths ``DECODE_LENS[0]``) and at one share of
+    ``decode_32k`` (B=128, the last 4096 of 32768 rows, every row valid,
+    the LSE output); then the merge's one launch by name and its call's
+    device time at 2, 4 and 8 ranks of B=128, Hq=8, D=256 bf16, beside its
+    bound; and the same two readings of an empty launch
+    (``torch.cuda._sleep(0)``), the floor under both.
+    ``scripts/decode_combine_ab.py`` runs this function's source against
+    another checkout's kernels too."""
+    def own(r, key):
+        if r is None:
+            return "not measured (the profiler saw no kernels)"
+        return f"{sum(v for k, v in r['by_name'].items() if key in k):.5f} ms"
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    lens = DECODE_LENS[0][0]
+    args, lt = decode_case(MAX_BATCH, MAX_LEN, HQ, HKV, HD, torch.bfloat16,
+                           lens, 500)
+    b, s = TP_DECODE
+    m = s // TP_SHARES
+    gen = torch.Generator(device="cuda").manual_seed(2600)
+    q = _randn((b, 1, HQ, HD), torch.bfloat16, gen)
+    ks = _randn((b, m, HKV, HD), torch.bfloat16, gen)
+    vs = _randn((b, m, HKV, HD), torch.bfloat16, gen)
+    full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    for tag, fn, ns in (
+            (f"gemma-2b serving decode B={MAX_BATCH} S={MAX_LEN} "
+             f"lens={lens}", lambda: da.decode_attention(*args, lt),
+             da.split_plan(MAX_BATCH, HKV, MAX_LEN, None)),
+            (f"one share of decode_32k B={b} rows {m} k_offset {s - m}",
+             lambda: da.decode_attention(q, ks, vs, full, k_offset=s - m,
+                                         return_lse=True),
+             da.split_plan(b, HKV, m, None))):
+        r = _profile(fn, 20)
+        log(f"decode launches, {tag} ({ns} splits): split "
+            f"{own(r, 'decode_split')}, combine {own(r, 'decode_combine')} "
+            f"by name; the whole call {time_ms(fn, flush):.5f} ms [{smi}]")
+    outs = _randn((b, HQ, TP_SHARES, HD), torch.bfloat16, gen)
+    lses = torch.randn((b, HQ, TP_SHARES), generator=gen, device="cuda")
+    for r in (2, 4, TP_SHARES):
+        o, l = outs[:, :, :r].contiguous(), lses[..., :r].contiguous()
+        bound = _bound(3.0 * o.numel(), 2.0 * o.numel() + 4.0 * l.numel()
+                       + 2.0 * b * HQ * HD)
+        p = _profile(lambda: da.merge(o, l), 20)
+        log(f"merge launch, R={r} B={b} Hq={HQ} D={HD} bf16: "
+            f"{own(p, 'decode_combine')} by name; the call "
+            f"{time_ms(lambda: da.merge(o, l), None):.5f} ms; bound "
+            f"{bound[0]:.5f} ms ({bound[1]}) [{smi}]")
+    empty = _profile(lambda: torch.cuda._sleep(0), 20)
+    log(f"an empty launch: {own(empty, 'spin')} by name; the call "
+        f"{time_ms(lambda: torch.cuda._sleep(0), None):.5f} ms [{smi}]")
+
+
 def bwd_launch_times(smi: str) -> None:
     """Each backward launch's device time by kernel name (``torch.profiler``
     over 5 calls, ms a call) at the training shapes of both backward
@@ -3621,6 +3690,16 @@ TP_LOGITS_TOL = {1: TOL[torch.bfloat16], 2: 1e-1}
 # (tests/test_torch_decode_split.py::test_row_limit_separates_the_merge_from_its_faults)
 TP_ROW_RTOL = 1e-2
 TP_NEAR_TIE = 5e-2
+# the combine kernel at the split counts the serving shapes give, all at
+# Hq = 8: split_plan's count -> (B, Hkv, S) of a batch of 128 sequences, a
+# GQA group of 2 at B = 4, gemma-2b's serving decode, one long sequence
+COMBINE_SPLITS = {2: (128, 1, 256), 9: (4, 4, 1024), 32: (4, 1, 1024),
+                  128: (1, 1, 4096)}
+# the merge's ranks: worlds 1, 2 and 4 and the 8 shares of decode_32k
+MERGE_RANKS = (1, 2, 4, 8)
+# a row's log-sum-exp against the split version's, fp32 on both sides
+# (scores near 1, so the LSE is log(length) + a few)
+LSE_TOL = 1e-4
 
 
 def tp_plan(mesh_shape) -> ShardingPlan:
@@ -3671,18 +3750,126 @@ def _shares(q, k, v, lens, window):
     return torch.stack(outs, 2), torch.stack(lses, 2)
 
 
+def _empty_splits(lens, s: int, ns: int) -> int:
+    """The (sequence, split) pairs with no valid key."""
+    ranges = [da.split_range(int(n), s, None, ns, i)
+              for n in lens for i in range(ns)]
+    return sum(1 for lo, hi in ranges if hi <= lo)
+
+
+def check_decode_combine() -> dict:
+    """The decode call at each ``COMBINE_SPLITS`` shape, at each head dim
+    of the kernels' dispatch list, in bf16 and fp32, with random lengths
+    from a numpy seed (sequence 0 empty where B > 1; B = 1 under half the
+    cache) that must leave some splits empty: the output against
+    ``ref.decode_attention_split`` and ``ref.decode_attention_naive`` at
+    ``TOL``, the LSE against the split version's at ``LSE_TOL`` and
+    ``NEG_INF`` exactly for an empty sequence.  Returns the largest bf16
+    error."""
+    from repro_torch.kernels._wrap import HEAD_DIMS
+    worst, n = 0.0, 0
+    for ns, (b, hkv, s) in COMBINE_SPLITS.items():
+        if da.split_plan(b, hkv, s, None) != ns:
+            raise AssertionError(f"split_plan({b}, {hkv}, {s}) is "
+                                 f"{da.split_plan(b, hkv, s, None)}, not {ns}")
+        rng = np.random.default_rng(2700 + ns)
+        lens = rng.integers(1, s + 1 if b > 1 else s // 2 + 1, b)
+        if b > 1:
+            lens[0] = 0
+        empty = _empty_splits(lens, s, ns)
+        if not empty:
+            raise AssertionError(f"lengths {lens} leave no split of {ns} "
+                                 "empty")
+        for d in HEAD_DIMS:
+            for dtype in TOL:
+                args, lt = decode_case(b, s, 8, hkv, d, dtype, lens.tolist(),
+                                       2700 + d)
+                got, lse = da.decode_attention(*args, lt, return_lse=True)
+                split, split_lse = ref.decode_attention_split(
+                    *args, lt, return_lse=True)
+                tag = f"decode combine {ns} splits (B={b}, Hkv={hkv}, S={s}) " \
+                    f"D={d} {dtype}"
+                err = max(_check(f"{tag} vs split", got, split, TOL[dtype]),
+                          _check(f"{tag} vs naive", got,
+                                 ref.decode_attention_naive(*args, lt),
+                                 TOL[dtype]))
+                _check(f"{tag} LSE", lse, split_lse, LSE_TOL, 1e-5)
+                if b > 1 and not bool((lse[0] == ref.NEG_INF).all()):
+                    raise AssertionError(f"{tag}: an empty sequence's LSE "
+                                         "is not NEG_INF")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                n += 1
+        log(f"  decode combine, {ns} splits (B={b}, Hkv={hkv}, Hq=8, S={s}),"
+            f" lengths {lens.tolist()[:6]}{'...' if b > 6 else ''} "
+            f"({empty} of {b * ns} splits empty): the dispatch list's D "
+            f"{HEAD_DIMS} in bf16 and fp32 within TOL of the split and naive"
+            f" versions, LSE within {LSE_TOL}; combine_plan "
+            f"{da.combine_plan(b * 8, ns, HEAD_DIMS[-1])} at D={HEAD_DIMS[-1]}")
+    log(f"decode combine: {n} cases, largest bf16 max|err| {worst:.3e}")
+    return worst
+
+
+def check_merge_ranks() -> float:
+    """``decode_attention.merge`` of each ``MERGE_RANKS`` count of ranks,
+    at each head dim of the dispatch list, in bf16 and fp32, B=128, Hq=8:
+    random outputs and LSEs (x 3), a quarter of the (row, rank) pairs empty
+    (LSE ``NEG_INF``, output 0, as the decode call gives them) and every
+    rank of sequence 0 empty; against ``ref.decode_merge`` at ``TOL`` and
+    per row at ``TP_ROW_RTOL``, a row whose every rank is empty exactly 0.
+    Returns the largest bf16 error."""
+    from repro_torch.kernels._wrap import HEAD_DIMS
+    b, hq = TP_DECODE[0], 8
+    worst = 0.0
+    for r in MERGE_RANKS:
+        for d in HEAD_DIMS:
+            for dtype in TOL:
+                gen = torch.Generator(device="cuda").manual_seed(2800 + r * d)
+                outs = _randn((b, hq, r, d), dtype, gen)
+                lses = 3 * torch.randn((b, hq, r), generator=gen,
+                                       device="cuda")
+                empty = torch.rand((b, hq, r), generator=gen,
+                                   device="cuda") < 0.25
+                empty[0] = True
+                lses[empty] = ref.NEG_INF
+                outs[empty] = 0
+                got = da.merge(outs, lses)
+                want = ref.decode_merge(outs, lses)
+                tag = f"merge of {r} ranks D={d} {dtype}"
+                err = _check(tag, got, want, TOL[dtype])
+                _row_check(tag, got, want, TP_ROW_RTOL)
+                dead = empty.all(-1)
+                if bool(got[:, 0][dead].any()):
+                    raise AssertionError(f"{tag}: a row with every rank "
+                                         "empty is not 0")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+        log(f"  merge of {r} ranks (B={b}, Hq={hq}): the dispatch list's D "
+            f"{HEAD_DIMS} in bf16 and fp32 within TOL of ref.decode_merge, "
+            f"each row within {TP_ROW_RTOL}, empty rows 0; combine_plan "
+            f"{da.combine_plan(b * hq, r, HEAD_DIMS[-1], 2)} at "
+            f"D={HEAD_DIMS[-1]} bf16")
+    log(f"merge: {len(MERGE_RANKS) * len(HEAD_DIMS) * len(TOL)} cases, "
+        f"largest bf16 max|err| {worst:.3e}")
+    return worst
+
+
 def check_decode_shares(smi: str) -> dict:
     """The decode kernel at each of ``TP_SHARES`` shares of a
     ``TP_DECODE`` cache (random lengths from a numpy seed), the shares
     merged by ``decode_attention.merge``, against the kernel on the whole
     cache and ``ref.decode_attention_naive`` at the bf16 ``TOL``, for each
     of ``TP_HEADS``; then one share's call at full lengths and the merge
-    timed beside their bounds.  Returns the merge's record (its kernel
-    line) and the share's."""
+    timed beside their bounds; before them the combine kernel's held cases
+    at both its call sites
+    (``check_decode_combine``, ``check_merge_ranks``).  Returns the merge's
+    record (its kernel line), the share's and the held cases' largest bf16
+    errors."""
     b, s = TP_DECODE
     m = s // TP_SHARES
     tol = TOL[torch.bfloat16]
-    out: dict = {}
+    out: dict = {"combine": check_decode_combine(),
+                 "merge_ranks": check_merge_ranks()}
     for seed, (aid, ((hq, hkv, d), window)) in enumerate(TP_HEADS.items()):
         gen = torch.Generator(device="cuda").manual_seed(2500 + seed)
         q = _randn((b, 1, hq, d), torch.bfloat16, gen)
@@ -4386,12 +4573,13 @@ def log_ptxas(kname: str, report: str) -> None:
     """Registers and spill bytes per kernel instantiation from ptxas's
     report; raises if a tensor-core instantiation spills."""
     entries = re.findall(r"Compiling entry function '(\w+)'.*?"
-                         r"(\d+) bytes spill stores.*?Used (\d+) registers",
-                         report, flags=re.S)
+                         r"(\d+) bytes stack frame, (\d+) bytes spill "
+                         r"stores.*?Used (\d+) registers", report,
+                         flags=re.S)
     # ptxas's advisories (wgmma serialised, ...), by kernel
     advisories = re.findall(r"Performance Loss: (.*) in the function '(\w+)'",
                             report)
-    names = [n for n, _, _ in entries] + [n for _, n in advisories]
+    names = [n for n, _, _, _ in entries] + [n for _, n in advisories]
     try:
         names = subprocess.run(["c++filt"], input="\n".join(names),
                                capture_output=True, text=True, check=True,
@@ -4402,8 +4590,9 @@ def log_ptxas(kname: str, report: str) -> None:
              for n in names]
     log(f"  ptxas {kname}: {len(entries)} instantiations")
     spilled = []
-    for name, sname, (_, spill, regs) in zip(names, short, entries):
-        log(f"    {sname}: {regs} registers, {spill} bytes spill stores")
+    for name, sname, (_, stack, spill, regs) in zip(names, short, entries):
+        log(f"    {sname}: {regs} registers, {stack} bytes stack frame, "
+            f"{spill} bytes spill stores")
         if int(spill) and any(k in name for k in TENSOR_CORE_KERNELS):
             spilled.append(f"{sname} spills {spill} bytes")
     for sname, (what, _) in zip(short[len(entries):], advisories):
@@ -4451,6 +4640,7 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     worst["flash_attention_bwd"] = check_backward()
     worst["ssd_intra_chunk_bwd"] = check_ssd_backward()
     bwd_launch_times(smi)
+    decode_launch_times(smi)
     moe_err = check_moe()
     log(f"moe grouped step vs dense oracle: {len(MOE_CASES)} cases, largest "
         f"max|err| {moe_err:.3e} within TOL {TOL[torch.bfloat16]}")
@@ -4614,6 +4804,8 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     # kernel's from the mamba2-780m run (hymba-1.5b's are logged above),
     # the flash backward's from gemma-2b's full-depth train steps, the SSD
     # backward's from mamba2-780m's
+    worst["decode_attention"] = max(worst["decode_attention"],
+                                    tp["shares"]["combine"])
     kernels = []
     for kname in _build.KERNELS:
         r = records[kname]
@@ -4634,7 +4826,8 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
         "source": source["decode_attention"][0],
         "replaces": source["decode_attention"][1],
         "launches": tp["two"]["launches"]["decode_attention_merge"],
-        "max_abs_err": tp["shares"]["gemma-2b"], "ms": r["ms"],
+        "max_abs_err": max(tp["shares"]["gemma-2b"],
+                           tp["shares"]["merge_ranks"]), "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))

@@ -18,10 +18,25 @@
 //     keys, of its sequence's own valid range [max(0, len - window),
 //     min(len, S)), so short sequences and windowed layers spread over the
 //     SMs too.  It writes fp32 partials (m, l, acc) per query head and
-//     split.  The combine kernel, one block per (q head, batch), merges them:
+//     split.  The combine kernel merges them:
 //     out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30).  A
 //     split with no valid key writes m = -1e30, l = 0, acc = 0, and a row
 //     whose every split is empty comes out 0, never NaN;
+//   * the combine moves a few bytes per FLOP and little in all (1 MiB of
+//     partials at gemma-2b's serving shape, already in L2), so what bounds
+//     it is latency: how many 16-byte loads are in flight and how many
+//     trips to memory a row takes.  A warp owns a run of 16-byte columns of
+//     one row; its lanes split the row's partials between them, each lane
+//     issuing all its loads at once (one trip to memory); M and the
+//     denominator come from the lane's own splits or from shuffles, and
+//     each column sums its partials in ascending split order, passed
+//     between the lanes through the warp's share of shared memory where
+//     they split a column.  No block-wide barrier.  The arithmetic is
+//     fixed operation for operation (decode_combine), so the output is the
+//     same bits for any grid.  The grid
+//     (decode_attention.combine_plan, from the shapes alone) spreads a
+//     few rows over the SMs by narrower runs and packs many rows into a
+//     block of up to 4 warps;
 //   * n_splits comes from the shapes alone (the wrapper's split_plan), never
 //     from the values in `lengths`, so no host sync is needed;
 //   * a rank's share of a cache split over the sequence (tensor-parallel
@@ -310,83 +325,254 @@ decode_split_bf16(const __nv_bfloat16* __restrict__ q,
 
 // ---- combine ---------------------------------------------------------------
 
-constexpr int MAX_SPLITS = 256;
+constexpr int MAX_SPLITS = 256;  // splits of the plan, or ranks of a merge
+constexpr int CK = 8;            // 16-byte partial loads a lane keeps in flight
+constexpr int COMBINE_WARPS = 4;  // most warps in a combine block
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// 16 bytes of partials: one load of four 32-bit words, then N fp32
+// values.  The two steps are apart so that a lane issues all its loads
+// before it uses any.
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+template <typename TA> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ static __forceinline__ void unpack(uint4 r, float* x) {
+    x[0] = __uint_as_float(r.x);
+    x[1] = __uint_as_float(r.y);
+    x[2] = __uint_as_float(r.z);
+    x[3] = __uint_as_float(r.w);
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static __forceinline__ void unpack(uint4 r, float* x) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// y += e * the split's 16 bytes, for a split with a key (e >= 0; an empty
+// split has e = -1 and adds nothing)
+template <typename TA>
+__device__ __forceinline__ void add_split(float e, uint4 v,
+                                          float (&y)[Vec16<TA>::N]) {
+  float x[Vec16<TA>::N];
+  Vec16<TA>::unpack(v, x);
+#pragma unroll
+  for (int j = 0; j < Vec16<TA>::N; ++j)
+    y[j] = e >= 0.f ? fmaf(e, x[j], y[j]) : y[j];
 }
 
-// One block per (q head, batch) row merges its ns partials.  `acc` (rows,
-// ns, D) in TA; `ml` (rows, ns, 2) running max and sum, or, with
-// `from_lse`, (rows, ns) log-sum-exps of normalised partials (l = 1, or 0
-// for NEG_INF).  Writes the row's output and, where `lse` is given, its
-// log-sum-exp M + log(den) (NEG_INF when every partial is empty).
-template <typename TA, typename T>
-__global__ void __launch_bounds__(attn::NT)
+// N output values in one store: 16 bytes (4 fp32, 8 bf16) or 8 (4 bf16).
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* p, const float* x) {
+  if constexpr (std::is_same<T, float>::value) {
+    static_assert(N == 4, "fp32 output from fp32 partials");
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (N == 8) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(ptx::pack_bf16(x[0], x[1]), ptx::pack_bf16(x[2], x[3]),
+                   ptx::pack_bf16(x[4], x[5]), ptx::pack_bf16(x[6], x[7]));
+  } else {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(ptx::pack_bf16(x[0], x[1]), ptx::pack_bf16(x[2], x[3]));
+  }
+}
+
+// Merges each row's `ns` partials: `acc` (rows, ns, D) in TA; `ml` (rows,
+// ns, 2) running max and sum, or, with FROM_LSE, (rows, ns) log-sum-exps of
+// normalised partials (l = 1, or 0 for NEG_INF).  Writes each row's output
+// and, where `lse` is given, its log-sum-exp M + log(den) (NEG_INF when
+// every partial is empty).
+//
+// The arithmetic, which the grid does not change (the output is the same
+// bits for any combine_plan): M = max_s m_s; each split with a key (l >=
+// 1; an empty one has l = 0 and adds nothing) weighs w_s = e^(m_s - M);
+// den sums w_s l_s, lane j of 32 over splits j, j + 32, ... in turn, then
+// across the lanes by a butterfly (16, 8, 4, 2, 1); each output value sums
+// w_s acc_s over the splits in ascending order, then times 1 / max(den,
+// 1e-30), so a row whose every split is empty comes out 0.
+//
+// The grid: a row's D values are `nv` columns of 16 bytes.  Warp w (block
+// b's warp j is w = b * warps + j) takes row w / (nv / chunk) and its
+// (w % (nv / chunk))-th run of `chunk` columns; lane l takes column
+// l % chunk of the run and loads the partials l / chunk, l / chunk + g,
+// ... of it, g = 32 / chunk (decode_attention.combine_lanes walks the same
+// mapping).  Each lane issues all its loads first, so a row is one trip to
+// memory.  No block-wide barrier.  Where one lane holds all its column's
+// splits (g = 1, ns <= CK: the merge's ranks, a few splits) M, den and the
+// sums are its own, with no exchange; otherwise M and den come from the
+// (m, l) of splits l, l + 32, ... and shuffles, and where the lanes of a
+// column split its partials (g > 1) they pass them through the warp's
+// share of shared memory, CK splits a lane at a time.
+template <typename TA, typename T, bool FROM_LSE>
+__global__ void __launch_bounds__(32 * COMBINE_WARPS)
 decode_combine(const TA* __restrict__ acc, const float* __restrict__ ml,
-               T* __restrict__ o, float* __restrict__ lse, int ns, int D,
-               bool from_lse) {
-  __shared__ float w[MAX_SPLITS];  // e^(m_s - M) of the splits with a key
-  __shared__ int live[MAX_SPLITS];  // and their numbers
-  __shared__ int n_live;
-  __shared__ float inv;
-  const long long row = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const int mstride = from_lse ? 1 : 2;
-  const float* m = ml + row * ns * mstride;
-  if (threadIdx.x < 32) {
-    // warp 0: M, the weights and the denominator.  A split with a key has
-    // l >= 1 (its largest score gives p = 1); an empty one has l = 0 and
-    // acc = 0, adds nothing and is left out of the column sums.
-    const int lane = threadIdx.x;
-    float M = attn::NEG_INF;
-    for (int s = lane; s < ns; s += 32) M = fmaxf(M, m[mstride * s]);
+               T* __restrict__ o, float* __restrict__ lse, long long rows,
+               int ns, int nv, int chunk) {
+  using V = Vec16<TA>;
+  constexpr int N = V::N;
+  constexpr int MK = MAX_SPLITS / 32;  // (m, l) pairs a lane reads for M
+  constexpr unsigned FULL = 0xffffffffu;
+  // where g > 1, each warp's 32 * CK partials and their weights on their
+  // way between the lanes
+  extern __shared__ uint4 stage_all[];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  uint4* stage = stage_all + wib * 32 * CK;
+  float* stage_w = reinterpret_cast<float*>(stage_all + (blockDim.x >> 5) *
+                                            32 * CK) + wib * 32 * CK;
+  const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + wib;
+  const int runs = nv / chunk;
+  const long long row = w / runs;
+  if (row >= rows) return;  // a whole warp past the last row
+  const int run = (int)(w - row * runs);
+  const int cl = lane & (chunk - 1), grp = lane / chunk;
+  const int g = 32 / chunk;  // lanes of a column, each loading its splits
+  const bool local = g == 1 && ns <= CK;  // a lane holds all its splits
+  const int D = nv * N;
+  const TA* a = acc + row * ns * D + (run * chunk + cl) * N;
+  const float* m = ml + row * ns * (FROM_LSE ? 1 : 2);
+  auto ml_at = [&](int s, float& ms, float& ls) {
+    if constexpr (FROM_LSE) {
+      ms = __ldg(m + s);
+      ls = 1.f;  // set from ms once it is in
+    } else {
+      const float2 p = __ldg(reinterpret_cast<const float2*>(m) + s);
+      ms = p.x;
+      ls = p.y;
+    }
+  };
+  auto live = [](float ms, float ls) {
+    return FROM_LSE ? ms > 0.5f * attn::NEG_INF : ls > 0.f;
+  };
+
+  // this lane's splits s0 + grp + g * i: their partials and (m, l)
+  uint4 raw[CK];
+  float ms[CK], ls[CK];
+  auto load_own = [&](int s0) {
+#pragma unroll
+    for (int i = 0; i < CK; ++i)
+      if (s0 + grp + i * g < ns)
+        raw[i] = load16(a + (long long)(s0 + grp + i * g) * D);
+#pragma unroll
+    for (int i = 0; i < CK; ++i) {
+      ms[i] = attn::NEG_INF;
+      ls[i] = 0.f;
+      if (s0 + grp + i * g < ns) ml_at(s0 + grp + i * g, ms[i], ls[i]);
+    }
+  };
+  load_own(0);
+  // and, unless it holds them all, the row's (m, l), lane-parallel
+  float mr[MK], lr[MK];
+#pragma unroll
+  for (int k = 0; k < MK; ++k) {
+    mr[k] = attn::NEG_INF;
+    lr[k] = 0.f;
+    if (!local && lane + 32 * k < ns) ml_at(lane + 32 * k, mr[k], lr[k]);
+  }
+
+  float M = attn::NEG_INF, den = 0.f;
+  float wt[CK];  // this lane's splits' weights; -1 for an empty split
+  auto weigh = [&]() {  // every exp taken, no branch: they overlap
+#pragma unroll
+    for (int i = 0; i < CK; ++i) {
+      const float e = expf(ms[i] - M);
+      wt[i] = live(ms[i], ls[i]) ? e : -1.f;
+    }
+  };
+  if (local) {
+    // the butterfly over lanes 0..CK-1, the others holding 0
+    static_assert(CK == 8, "the local butterfly is written for 8 splits");
+#pragma unroll
+    for (int i = 0; i < CK; ++i) M = fmaxf(M, ms[i]);
+    weigh();
+    float d[CK];
+#pragma unroll
+    for (int i = 0; i < CK; ++i)
+      d[i] = wt[i] >= 0.f ? fmaf(wt[i], ls[i], 0.f) : 0.f;
+    den = ((d[0] + d[4]) + (d[2] + d[6])) + ((d[1] + d[5]) + (d[3] + d[7]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < MK; ++k) M = fmaxf(M, mr[k]);
 #pragma unroll
     for (int x = 16; x > 0; x >>= 1)
-      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, x));
-    float den = 0.f;
-    int count = 0;
-    for (int s0 = 0; s0 < ns; s0 += 32) {
-      const int s = s0 + lane;
-      float ls = 0.f;
-      if (s < ns)
-        ls = from_lse ? (m[s] > 0.5f * attn::NEG_INF ? 1.f : 0.f)
-                      : m[2 * s + 1];
-      const unsigned has = __ballot_sync(0xffffffffu, ls > 0.f);
-      if (ls > 0.f) {
-        const int at = count + __popc(has & ((1u << lane) - 1u));
-        w[at] = expf(m[mstride * s] - M);
-        live[at] = s;
-        den += w[at] * ls;
-      }
-      count += __popc(has);
+      M = fmaxf(M, __shfl_xor_sync(FULL, M, x));
+#pragma unroll
+    for (int k = 0; k < MK; ++k) {
+      if constexpr (FROM_LSE) lr[k] = live(mr[k], 0.f) ? 1.f : 0.f;
+      const float e = expf(mr[k] - M);
+      den = lr[k] > 0.f ? fmaf(e, lr[k], den) : den;
     }
 #pragma unroll
-    for (int x = 16; x > 0; x >>= 1)
-      den += __shfl_xor_sync(0xffffffffu, den, x);
-    if (lane == 0) {
-      n_live = count;
-      inv = 1.f / fmaxf(den, 1e-30f);  // every split empty: the row is 0
-      if (lse != nullptr)
-        lse[row] = count > 0 ? M + logf(den) : attn::NEG_INF;
-    }
+    for (int x = 16; x > 0; x >>= 1) den += __shfl_xor_sync(FULL, den, x);
+    weigh();
   }
-  __syncthreads();
-  const int nl = n_live;
-  const TA* a = acc + row * ns * D;
-  for (int c = 2 * threadIdx.x; c < D; c += 2 * attn::NT) {
-    float x0 = 0.f, x1 = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < nl; ++i) {
-      const float2 p = load2(a + live[i] * D + c);
-      x0 += w[i] * p.x;
-      x1 += w[i] * p.y;
+
+  // each column's sum over the live splits in ascending order
+  float y[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) y[j] = 0.f;
+  for (int s0 = 0; s0 < ns; s0 += g * CK) {
+    if (s0 > 0) {
+      load_own(s0);
+      weigh();
     }
-    o[row * D + c] = attn::from_f<T>(x0 * inv);
-    o[row * D + c + 1] = attn::from_f<T>(x1 * inv);
+    if (g == 1) {
+#pragma unroll
+      for (int i = 0; i < CK; ++i)
+        if (s0 + i < ns) add_split<TA>(wt[i], raw[i], y);
+      continue;
+    }
+    // splits s0 + t, t = i * g + grp, through shared memory
+#pragma unroll
+    for (int i = 0; i < CK; ++i) {
+      stage[(i * g + grp) * chunk + cl] = raw[i];
+      if (cl == 0) stage_w[i * g + grp] = wt[i];
+    }
+    __syncwarp();
+    const int nt = min(g * CK, ns - s0);
+    for (int t = 0; t < nt; ++t)
+      add_split<TA>(stage_w[t], stage[t * chunk + cl], y);
+    __syncwarp();  // read before the next splits are written
   }
+  if (grp == 0) {
+    const float inv = 1.f / fmaxf(den, 1e-30f);  // every split empty: 0
+#pragma unroll
+    for (int j = 0; j < N; ++j) y[j] *= inv;
+    store_vec<T, N>(o + row * D + (run * chunk + cl) * N, y);
+  }
+  if (lse != nullptr && run == 0 && lane == 0)
+    lse[row] = den > 0.f ? M + logf(den) : attn::NEG_INF;
+}
+
+// The combine's launch from decode_attention.combine_plan: `chunk` columns
+// of 16 bytes a warp (a power of two, at most 32, dividing the row's nv),
+// `warps` warps a block.  Returns the launch's cudaGetLastError().
+template <typename TA, typename T, bool FROM_LSE>
+int launch_combine(const TA* acc, const float* ml, T* o, float* lse,
+                   long long rows, int ns, int D, int chunk, int warps,
+                   cudaStream_t stream) {
+  constexpr int N = Vec16<TA>::N;
+  if (D % N != 0 || chunk < 1 || chunk > 32 || (chunk & (chunk - 1)) ||
+      (D / N) % chunk != 0 || warps < 1 || warps > COMBINE_WARPS)
+    return int(cudaErrorInvalidValue);
+  const int nv = D / N;
+  const long long blocks = (rows * (nv / chunk) + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  // the staging buffers, used where the lanes of a column split its partials
+  const size_t smem =
+      chunk < 32 ? size_t(warps) * 32 * CK * (sizeof(uint4) + sizeof(float))
+                 : 0;
+  decode_combine<TA, T, FROM_LSE>
+      <<<(unsigned)blocks, 32 * warps, smem, stream>>>(acc, ml, o, lse, rows,
+                                                      ns, nv, chunk);
+  return int(cudaGetLastError());
 }
 
 template <int D, typename T>
@@ -394,7 +580,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
            float* lse, const void* lengths, Partials part, int B, int S,
            int Hq, int Hkv, long long q_sb, long long k_sb, long long k_st,
            long long v_sb, long long v_st, int window, long long k_offset,
-           float scale, cudaStream_t stream) {
+           float scale, int chunk, int warps, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const dim3 grid(part.ns, Hkv, B);
   if constexpr (std::is_same<T, float>::value) {
@@ -416,9 +602,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  decode_combine<float, T><<<dim3(Hq, B), attn::NT, 0, stream>>>(
-      part.acc, part.ml, static_cast<T*>(o), lse, part.ns, D, false);
-  return int(cudaGetLastError());
+  return launch_combine<float, T, false>(
+      part.acc, part.ml, static_cast<T*>(o), lse, (long long)B * Hq, part.ns,
+      D, chunk, warps, stream);
 }
 
 }  // namespace
@@ -428,14 +614,17 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // dense (B,1,Hq,D) tensor; `lse`, if not null, a dense (B,Hq) fp32 tensor
 // that receives each row's log-sum-exp; `part_acc` (B,Hq,n_splits,D) and
 // `part_ml` (B,Hq,n_splits,2) are fp32 scratch.  The cache's row 0 is the
-// global position k_offset (0 for a whole cache).  Two launches (split,
-// combine); returns the first non-zero cudaGetLastError() after them.
+// global position k_offset (0 for a whole cache).  `combine_chunk` and
+// `combine_warps` are combine_plan's for B*Hq rows of n_splits partials.
+// Two launches (split, combine); returns the first non-zero
+// cudaGetLastError() after them.
 extern "C" int decode_attention_fwd(
     int dtype, int D, const void* q, const void* k, const void* v, void* o,
     void* lse, const void* lengths, void* part_acc, void* part_ml,
-    int n_splits, int B, int S, int Hq, int Hkv, long long q_sb,
-    long long k_sb, long long k_st, long long v_sb, long long v_st,
-    int window, long long k_offset, float scale, void* stream) {
+    int n_splits, int combine_chunk, int combine_warps, int B, int S, int Hq,
+    int Hkv, long long q_sb, long long k_sb, long long k_st, long long v_sb,
+    long long v_st, int window, long long k_offset, float scale,
+    void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || n_splits <= 0 ||
       n_splits > MAX_SPLITS)
     return int(cudaErrorInvalidValue);
@@ -446,11 +635,11 @@ extern "C" int decode_attention_fwd(
   if (dtype == 0) {
     ATTN_DISPATCH_D(D, return launch<D, float>(
         q, k, v, o, l, lengths, part, B, S, Hq, Hkv, q_sb, k_sb, k_st, v_sb,
-        v_st, window, k_offset, scale, st))
+        v_st, window, k_offset, scale, combine_chunk, combine_warps, st))
   } else if (dtype == 1) {
     ATTN_DISPATCH_D(D, return launch<D, __nv_bfloat16>(
         q, k, v, o, l, lengths, part, B, S, Hq, Hkv, q_sb, k_sb, k_st, v_sb,
-        v_st, window, k_offset, scale, st))
+        v_st, window, k_offset, scale, combine_chunk, combine_warps, st))
   }
   return int(cudaErrorInvalidValue);
 }
@@ -458,27 +647,27 @@ extern "C" int decode_attention_fwd(
 // The merge of R ranks' results over a cache split along the sequence:
 // `parts` (B,Hq,R,D) the ranks' normalised outputs in dtype, `lses`
 // (B,Hq,R) fp32 their log-sum-exps (NEG_INF for a rank with no valid key);
-// `o` (B,1,Hq,D) in dtype and, if not null, `lse` (B,Hq) fp32.  One launch
-// of the combine kernel, each rank one partial.
+// `o` (B,1,Hq,D) in dtype and, if not null, `lse` (B,Hq) fp32.  `parts`
+// and `o` start on 16 bytes and D is a multiple of 16 bytes' elements;
+// `chunk` and `warps` are combine_plan's for B*Hq rows of R partials.  One
+// launch of the combine kernel, each rank one partial.
 extern "C" int decode_attention_merge(int dtype, int D, const void* parts,
                                       const void* lses, void* o, void* lse,
-                                      int R, int B, int Hq, void* stream) {
-  if (B <= 0 || Hq <= 0 || R <= 0 || R > MAX_SPLITS || D % 2 != 0)
+                                      int R, int B, int Hq, int chunk,
+                                      int warps, void* stream) {
+  if (B <= 0 || Hq <= 0 || R <= 0 || R > MAX_SPLITS)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Hq, B);
+  const long long rows = (long long)B * Hq;
   const float* ml = static_cast<const float*>(lses);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0) {
-    decode_combine<float, float><<<grid, attn::NT, 0, st>>>(
-        static_cast<const float*>(parts), ml, static_cast<float*>(o), l, R,
-        D, true);
-  } else if (dtype == 1) {
-    decode_combine<__nv_bfloat16, __nv_bfloat16><<<grid, attn::NT, 0, st>>>(
+  if (dtype == 0)
+    return launch_combine<float, float, true>(
+        static_cast<const float*>(parts), ml, static_cast<float*>(o), l, rows,
+        R, D, chunk, warps, st);
+  if (dtype == 1)
+    return launch_combine<__nv_bfloat16, __nv_bfloat16, true>(
         static_cast<const __nv_bfloat16*>(parts), ml,
-        static_cast<__nv_bfloat16*>(o), l, R, D, true);
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
+        static_cast<__nv_bfloat16*>(o), l, rows, R, D, chunk, warps, st);
+  return int(cudaErrorInvalidValue);
 }
