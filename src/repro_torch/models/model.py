@@ -139,7 +139,9 @@ class Model:
     # ``moe_impl`` is the MoE layers' lowering (``layers.moe_apply``); the
     # engine passes none and serves "dense", as the JAX engine does.  The
     # audio family reads ``batch["frames"]`` (B, T_enc, d) and the VLM
-    # ``batch["vision"]`` (B, Nv, d) in train and prefill.
+    # ``batch["vision"]`` (B, Nv, d) in train and prefill.  ``telemetry``
+    # (the serving engine's recorder) spans the decoder-only families' parts
+    # (``transformer.forward``); the audio family and the VLM ignore it.
     def apply_train(self, params: dict, batch: dict, *, remat: bool = True,
                     moe_impl: str = "dense", remat_group: int = 1,
                     return_hidden: bool = False) -> torch.Tensor:
@@ -170,7 +172,8 @@ class Model:
         return layers.unembed(self.cfg, params["embed"], x)
 
     def apply_prefill(self, params: dict, batch: dict, *,
-                      moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
+                      moe_impl: str = "dense", telemetry=None
+                      ) -> tuple[torch.Tensor, dict]:
         """Last-position logits (B, 1, V) and the prompt's cache."""
         cfg = self.cfg
         lengths = batch.get("lengths")
@@ -184,10 +187,12 @@ class Model:
                                lengths=lengths, logits_tail=1)
         return transformer.forward(cfg, params, batch["tokens"],
                                    mode="prefill", lengths=lengths,
-                                   moe_impl=moe_impl, logits_tail=1)
+                                   moe_impl=moe_impl, logits_tail=1,
+                                   telemetry=telemetry)
 
     def apply_decode(self, params: dict, cache: dict, batch: dict, *,
-                     moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
+                     moe_impl: str = "dense", telemetry=None
+                     ) -> tuple[torch.Tensor, dict]:
         """One token per sequence at position ``lengths-1``; ``cache`` is
         updated in place and returned."""
         cfg = self.cfg
@@ -200,7 +205,8 @@ class Model:
                                cache=cache, lengths=lengths)
         return transformer.forward(cfg, params, batch["tokens"],
                                    mode="decode", cache=cache,
-                                   lengths=lengths, moe_impl=moe_impl)
+                                   lengths=lengths, moe_impl=moe_impl,
+                                   telemetry=telemetry)
 
     # ----------------------------------------------------------- input specs
     def input_specs(self, shape: ShapeConfig) -> dict:

@@ -15,6 +15,14 @@ reference also pins the checkpointed carry with ``_pinned``, an XLA
 scheduling barrier that keeps XLA from hoisting an fp32 copy of the residual
 stack out of its scan; eager PyTorch schedules nothing, so it has no
 counterpart here: the carry between groups is simply the bf16 ``x``.
+
+Given a telemetry recorder (the serving engine passes its own), ``forward``
+spans its parts on it, each wall-clocked on the host: ``model.embed``, then
+per layer ``layer.norm`` (ln1, and ln2 where the layer has one),
+``layer.attention``, ``layer.ssm``, ``layer.moe`` or ``layer.mlp`` with the
+attr ``layer`` (the layer's index), then ``model.head``.  They time the
+host's enqueue; the device's time under each is the profiler's, joined by
+launch time.  Training and the sharded steps pass none.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.telemetry import wall_span as _span
 from . import layers as L
 from .config import ArchConfig
 
@@ -259,36 +268,49 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
 def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
                 positions: torch.Tensor, window: int | None,
                 layer_cache: dict | None, lengths: torch.Tensor | None,
-                moe_impl: str = "dense") -> tuple[torch.Tensor, dict]:
+                moe_impl: str = "dense", telemetry=None, index: int = 0
+                ) -> tuple[torch.Tensor, dict]:
     """One layer; returns its output and its cache entries (the prompt's
     for prefill, the updated views of ``layer_cache`` for decode).  Under
     the sharded step ``p``'s leaves are DTensors, gathered here (inside the
     layer's remat checkpoint) to the local tensors the layer computes
-    with."""
+    with.  With ``telemetry``, its parts are spans with ``layer=index``."""
     p = shard_ctx.gather_layer(p)
 
     def views(*keys):
         return (None if layer_cache is None else
                 {k: layer_cache[k] for k in keys})
 
-    h = L.apply_norm(cfg, p["ln1"], x)
+    def span(name):
+        return _span(telemetry, name, layer=index)
+
+    with span("layer.norm"):
+        h = L.apply_norm(cfg, p["ln1"], x)
     if cfg.family == "ssm":
-        y, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
-                              cache=views("h", "conv"))
+        with span("layer.ssm"):
+            y, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
+                                  cache=views("h", "conv"))
         return x + y, sc
-    a, new_cache = L.attention(cfg, p["attn"], h, positions=positions,
-                               mode=mode, causal=True, window=window,
-                               cache=views("k", "v"), lengths=lengths)
+    with span("layer.attention"):
+        a, new_cache = L.attention(cfg, p["attn"], h, positions=positions,
+                                   mode=mode, causal=True, window=window,
+                                   cache=views("k", "v"), lengths=lengths)
     if cfg.family == "hybrid":
-        s, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
-                              cache=views("h", "conv"))
+        with span("layer.ssm"):
+            s, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
+                                  cache=views("h", "conv"))
         new_cache = {**new_cache, **sc}
         a = (a + s) * 0.5                   # parallel heads, mean-fused
     x = x + a
-    h2 = L.apply_norm(cfg, p["ln2"], x)
+    with span("layer.norm"):
+        h2 = L.apply_norm(cfg, p["ln2"], x)
     if cfg.family == "moe":
-        return x + L.moe_apply(cfg, p["moe"], h2, impl=moe_impl), new_cache
-    return x + L.mlp(cfg, p["mlp"], h2), new_cache
+        with span("layer.moe"):
+            y = L.moe_apply(cfg, p["moe"], h2, impl=moe_impl)
+    else:
+        with span("layer.mlp"):
+            y = L.mlp(cfg, p["mlp"], h2)
+    return x + y, new_cache
 
 
 # --------------------------------------------------------------------------
@@ -300,7 +322,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             lengths: torch.Tensor | None = None,
             moe_impl: str = "dense", remat: bool = False,
             remat_group: int = 1, logits_tail: int | None = None,
-            return_hidden: bool = False
+            return_hidden: bool = False, telemetry=None
             ) -> tuple[torch.Tensor, dict | None]:
     """tokens: (B, T) integer.
 
@@ -313,11 +335,12 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     positions.  ``remat`` (train mode under autograd): checkpoint every
     ``remat_group`` layers (every layer unless it divides ``n_layers``).
     ``return_hidden``: the final-normed hidden states (B, T, d) in place of
-    the logits.
+    the logits.  ``telemetry``: a recorder to span the parts on.
     """
     b, t = tokens.shape
-    x = shard_ctx.constrain_act(
-        L.embed(params["embed"], tokens, cfg.vocab).to(L.COMPUTE_DTYPE))
+    with _span(telemetry, "model.embed"):
+        x = shard_ctx.constrain_act(
+            L.embed(params["embed"], tokens, cfg.vocab).to(L.COMPUTE_DTYPE))
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
@@ -339,7 +362,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                                          else wsched[i])
         y, c = apply_layer(cfg, layers[i], x, mode=mode,
                            positions=positions, window=w, layer_cache=lc,
-                           lengths=lengths, moe_impl=moe_impl)
+                           lengths=lengths, moe_impl=moe_impl,
+                           telemetry=telemetry, index=i)
         return shard_ctx.constrain_act(y), c
 
     built: dict[str, list] = {}
@@ -360,10 +384,11 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         new_cache = {k: torch.stack(v) for k, v in built.items()}
     elif mode == "decode":
         new_cache = cache
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    if logits_tail is not None:
-        x = L.seq_tail(x, logits_tail)
-    if return_hidden:
-        return x, new_cache
-    return (shard_ctx.constrain_logits(L.unembed(cfg, params["embed"], x)),
-            new_cache)
+    with _span(telemetry, "model.head"):
+        x = L.apply_norm(cfg, params["final_norm"], x)
+        if logits_tail is not None:
+            x = L.seq_tail(x, logits_tail)
+        if return_hidden:
+            return x, new_cache
+        return (shard_ctx.constrain_logits(
+            L.unembed(cfg, params["embed"], x)), new_cache)

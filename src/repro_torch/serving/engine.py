@@ -13,11 +13,18 @@ engine never imports their classes: the port's own ``PlanCache``
 (``repro_torch.profiling``) fit, and so do the JAX package's, which are pure
 Python, and its ``TelemetryRecorder``.  The KV cache is
 updated in place (the JAX engine donates it instead).
+
+With a recorder wired, every ``step`` is a tree of wall-clocked spans
+(``SPANS``), each on the unix clock of ``torch.profiler``'s host and device
+events: ``engine.step`` over ``engine.admit`` (one ``engine.prefill`` per
+admitted request, over its ``engine.slot_write`` and ``engine.first_token``),
+``engine.decode``, ``engine.feedback`` and ``engine.emit``; the recorder is
+handed to the model, whose layers span themselves beneath.  Without one the
+engine passes the model nothing and each span site is one ``is None`` check.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -32,6 +39,15 @@ from repro_torch.core.objective import METRICS
 from repro_torch.core.scheduler import State
 from repro_torch.models.model import Model
 from repro_torch.telemetry import active as _tel_active
+from repro_torch.telemetry import wall_span as _span
+
+#: the spans a recorder receives from ``step`` (``submit`` adds
+#: ``engine.resolve``, a re-plan ``engine.replan_pass``)
+SPANS = ("engine.step", "engine.admit", "engine.prefill", "engine.slot_write",
+         "engine.first_token", "engine.decode", "engine.feedback",
+         "engine.emit")
+#: the FSM's states ``ServingEngine.trace`` keeps, the newest
+TRACE_STATES = 4096
 
 
 @dataclasses.dataclass
@@ -50,6 +66,8 @@ class Request:
     slot: int | None = None
     generated: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # unix ns of the submit, read only when the engine records telemetry
+    submitted_ns: int | None = None
 
 
 class ServingEngine:
@@ -63,10 +81,13 @@ class ServingEngine:
     objective and :meth:`dominant_objective` reports the most requested one.
     Each ``submit`` names its tenant with ``dag=`` (or ``default_dag``) when
     a ``plan_cache`` is wired.  :meth:`on_membership_change` is the fleet's
-    epoch callback.  ``telemetry`` records submits and re-plans as counters.
+    epoch callback.  ``telemetry`` records submits and re-plans as counters
+    and every step as spans (``SPANS``); the model gets it as
+    ``telemetry=`` only when it is wired.
 
     ``prefill_seconds`` and ``decode_seconds`` keep the wall time of every
-    prefill and decode step, each ended by a device synchronisation.
+    prefill and decode step, each ended by a device synchronisation;
+    ``trace`` the FSM's newest ``TRACE_STATES`` states.
     """
 
     def __init__(self, model: Model, params: dict, *, max_batch: int = 4,
@@ -82,6 +103,8 @@ class ServingEngine:
         self.feedback = feedback
         self.on_replan = on_replan
         self.telemetry = _tel_active(telemetry)
+        self._model_kw = ({} if self.telemetry is None
+                          else {"telemetry": self.telemetry})
         if plan_cache is None and default_dag is not None:
             raise ValueError(
                 "default_dag names the tenant submits resolve against a "
@@ -104,7 +127,7 @@ class ServingEngine:
         self.completed: dict[int, Request] = {}
         self._next_id = 0
         self.state = State.ANALYZE
-        self.trace: list[State] = []
+        self.trace: deque[State] = deque(maxlen=TRACE_STATES)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -128,6 +151,7 @@ class ServingEngine:
             raise ValueError(
                 "submit(dag=...) names a tenant to resolve against a "
                 "plan_cache, but the engine has none — wire plan_cache=")
+        submitted_ns = time.time_ns() if self.telemetry is not None else None
         rid = self._next_id
         self._next_id += 1
         if self.plan_cache is not None:
@@ -137,11 +161,8 @@ class ServingEngine:
                     "tenant: pass dag= here or default_dag= to the engine")
             misses0 = self.plan_cache.misses
             # the resolve context roots this submit's trace subtree
-            with (self.telemetry.trace(
-                      "engine.resolve", tenant=dag.name, request=rid,
-                      objective=objective, wall=True)
-                  if self.telemetry is not None
-                  else contextlib.nullcontext()):
+            with _span(self.telemetry, "engine.resolve", tenant=dag.name,
+                       request=rid, objective=objective):
                 self.plan = self.plan_cache.get(dag, objective=objective,
                                                 delta=delta)
                 fp = dag_fingerprint(dag)
@@ -158,7 +179,8 @@ class ServingEngine:
                                    objective=objective, resolved="none")
         self.queue.append(Request(rid, np.asarray(prompt, np.int32),
                                   max_new_tokens, eos_id,
-                                  objective=objective, dag=dag))
+                                  objective=objective, dag=dag,
+                                  submitted_ns=submitted_ns))
         return rid
 
     def active(self) -> int:
@@ -221,11 +243,8 @@ class ServingEngine:
         self.state = State.EXPLORE
         self.trace.append(self.state)
         self.replans += 1
-        with (self.telemetry.trace(
-                  "engine.replan_pass", reason="epoch",
-                  epoch=getattr(epoch, "epoch", None), wall=True)
-              if self.telemetry is not None
-              else contextlib.nullcontext()):
+        with _span(self.telemetry, "engine.replan_pass", reason="epoch",
+                   epoch=getattr(epoch, "epoch", None)):
             if self.telemetry is not None:
                 self.telemetry.counter(
                     "engine.replan", reason="epoch",
@@ -244,40 +263,55 @@ class ServingEngine:
         return self.completed
 
     # ----------------------------------------------------------------- admit
-    def _admit(self) -> None:
+    def _admit(self) -> int:
+        """Prefill queued requests into free slots; returns how many."""
         self.state = State.ANALYZE
         self.trace.append(self.state)
-        for slot in range(self.max_batch):
-            if self.slot_req[slot] is not None or not self.queue:
-                continue
-            req = self.queue.popleft()
-            plen = len(req.prompt)
-            batch = {"tokens": torch.as_tensor(req.prompt[None, :],
-                                               device=self.device),
-                     "lengths": torch.tensor([plen], dtype=torch.int32,
-                                             device=self.device)}
-            # the stub frontends' inputs, zeros as in the JAX engine: the
-            # audio cross cache gets plen // 2 rows, and rows past them keep
-            # what an earlier request left there
-            cfg = self.model.cfg
-            if cfg.family == "audio":
-                batch["frames"] = torch.zeros(
-                    (1, max(plen // 2, 1), cfg.d_model),
-                    dtype=torch.bfloat16, device=self.device)
-            if cfg.family == "vlm":
-                batch["vision"] = torch.zeros(
-                    (1, cfg.n_vision_tokens, cfg.d_model),
-                    dtype=torch.bfloat16, device=self.device)
+        admitted = 0
+        with _span(self.telemetry, "engine.admit"):
+            for slot in range(self.max_batch):
+                if self.slot_req[slot] is not None or not self.queue:
+                    continue
+                self._prefill(slot, self.queue.popleft())
+                admitted += 1
+        return admitted
+
+    def _prefill(self, slot: int, req: Request) -> None:
+        plen = len(req.prompt)
+        batch = {"tokens": torch.as_tensor(req.prompt[None, :],
+                                           device=self.device),
+                 "lengths": torch.tensor([plen], dtype=torch.int32,
+                                         device=self.device)}
+        # the stub frontends' inputs, zeros as in the JAX engine: the audio
+        # cross cache gets plen // 2 rows, and rows past them keep what an
+        # earlier request left there
+        cfg = self.model.cfg
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (1, max(plen // 2, 1), cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        if cfg.family == "vlm":
+            batch["vision"] = torch.zeros(
+                (1, cfg.n_vision_tokens, cfg.d_model),
+                dtype=torch.bfloat16, device=self.device)
+        tel = self.telemetry
+        queued_s = (None if req.submitted_ns is None
+                    else (time.time_ns() - req.submitted_ns) / 1e9)
+        with _span(tel, "engine.prefill", request=req.request_id,
+                   tokens=plen, queued_s=queued_s):
             t0 = time.perf_counter()
-            logits, pcache = self.model.apply_prefill(self.params, batch)
-            self._write_slot(slot, pcache)
-            first = int(torch.argmax(logits[0, -1]))
-            self._sync()
+            logits, pcache = self.model.apply_prefill(self.params, batch,
+                                                      **self._model_kw)
+            with _span(tel, "engine.slot_write"):
+                self._write_slot(slot, pcache)
+            with _span(tel, "engine.first_token"):
+                first = int(torch.argmax(logits[0, -1]))
+                self._sync()
             self.prefill_seconds.append(time.perf_counter() - t0)
-            req.slot = slot
-            req.generated.append(first)
-            self.slot_req[slot] = req
-            self.lengths[slot] = plen + 1
+        req.slot = slot
+        req.generated.append(first)
+        self.slot_req[slot] = req
+        self.lengths[slot] = plen + 1
 
     def _write_slot(self, slot: int, pcache: dict) -> None:
         """Copy a (L, 1, P, ...) prefill cache into slot ``slot`` of the
@@ -295,9 +329,16 @@ class ServingEngine:
 
     # ---------------------------------------------------------------- decode
     def step(self) -> None:
-        self._admit()
-        if self.active() == 0:
-            return
+        """Admit what fits, then one decode step over every slot."""
+        with _span(self.telemetry, "engine.step") as h:
+            admitted = self._admit()
+            rows = self.active()
+            if rows:
+                self._decode(rows)
+            if h is not None:
+                h.set(admitted=admitted, rows=rows)
+
+    def _decode(self, rows: int) -> None:
         self.state = State.EXECUTE
         self.trace.append(self.state)
         tokens = np.zeros((self.max_batch, 1), np.int32)
@@ -307,39 +348,48 @@ class ServingEngine:
         batch = {"tokens": torch.from_numpy(tokens).to(self.device),
                  "lengths": torch.from_numpy(
                      np.maximum(self.lengths, 1)).to(self.device)}
-        t0 = time.perf_counter()
-        logits, self.cache = self.model.apply_decode(self.params, self.cache,
-                                                     batch)
-        self._sync()
-        step_s = time.perf_counter() - t0
+        tel = self.telemetry
+        # the keys attended, from the host's lengths (no device read)
+        kv_tokens = int(self.lengths.sum()) if tel is not None else None
+        with _span(tel, "engine.decode", rows=rows, kv_tokens=kv_tokens):
+            t0 = time.perf_counter()
+            logits, self.cache = self.model.apply_decode(
+                self.params, self.cache, batch, **self._model_kw)
+            self._sync()
+            step_s = time.perf_counter() - t0
         self.decode_seconds.append(step_s)
         self._decode_steps += 1
         if self.feedback is not None and self._decode_steps > 1:
             # step 1 pays the kernel build and warm-up — not a hardware
             # signal.  work = decoded tokens this step (batch-occupancy
             # proxy for FLOPs; the loop's regressor absorbs the constant)
-            drifted = self.feedback.observe(
-                "engine/decode", "decode", float(self.active()), 0.0, step_s)
-            if drifted:
-                self.state = State.EXPLORE
-                self.trace.append(self.state)
-                self.replans += 1
-                with (self.telemetry.trace("engine.replan_pass",
-                                           reason="drift", wall=True)
-                      if self.telemetry is not None
-                      else contextlib.nullcontext()):
-                    if self.telemetry is not None:
-                        self.telemetry.counter(
-                            "engine.replan", reason="drift",
-                            tenants=len(self._tenant_traffic()))
-                    if self.plan_cache is not None:
-                        # the drift already bumped the calibration version;
-                        # re-plan exactly once per in-flight tenant
-                        self.plan_cache.on_drift()
-                        self._replan_in_flight_tenants()
-                    if self.on_replan is not None:
-                        self.on_replan()
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            with _span(tel, "engine.feedback"):
+                if self.feedback.observe("engine/decode", "decode",
+                                         float(rows), 0.0, step_s):
+                    self._replan_on_drift()
+        with _span(tel, "engine.emit"):
+            self._emit(torch.argmax(logits[:, -1], dim=-1).cpu().numpy())
+
+    def _replan_on_drift(self) -> None:
+        self.state = State.EXPLORE
+        self.trace.append(self.state)
+        self.replans += 1
+        with _span(self.telemetry, "engine.replan_pass", reason="drift"):
+            if self.telemetry is not None:
+                self.telemetry.counter(
+                    "engine.replan", reason="drift",
+                    tenants=len(self._tenant_traffic()))
+            if self.plan_cache is not None:
+                # the drift already bumped the calibration version;
+                # re-plan exactly once per in-flight tenant
+                self.plan_cache.on_drift()
+                self._replan_in_flight_tenants()
+            if self.on_replan is not None:
+                self.on_replan()
+
+    def _emit(self, nxt: np.ndarray) -> None:
+        """Append each slot's next token; finish and free the slots whose
+        request is done."""
         for s, req in enumerate(self.slot_req):
             if req is None:
                 continue

@@ -17,7 +17,8 @@ simulator's ``SimReport`` aggregates exactly from the log, and
 """
 
 from .events import KINDS, WALL_FIELDS, TelemetryEvent  # noqa: F401
-from .recorder import SpanHandle, TelemetryRecorder, active  # noqa: F401
+from .recorder import (SpanHandle, TelemetryRecorder, active,  # noqa: F401
+                       wall_span)
 from .report import run_summary, sim_aggregates  # noqa: F401
 from .store import RunStore  # noqa: F401
 from .trace import (SpanNode, critical_path,  # noqa: F401

@@ -80,9 +80,12 @@ class TelemetryEvent:
             flat logs reconstructable as causal trees; None for roots
             and for events emitted outside any span context.
         wall: unix timestamp at emission (nondeterministic, stripped by
-            :meth:`canonical`).
+            :meth:`canonical`); for a span the recorder wall-clocked, the
+            unix time its block closed.
         wall_s: wall-clock-measured duration for spans timed against
-            real hardware (nondeterministic, stripped likewise).
+            real hardware (nondeterministic, stripped likewise); such a
+            span covers ``[wall - wall_s, wall]`` in unix seconds, the
+            clock ``torch.profiler`` puts its host and device events on.
     """
 
     seq: int

@@ -16,7 +16,11 @@ simulator advances as simulated time passes (subsystems with no time of
 their own — the plan cache, the feedback loop — stamp events with the
 clock as-is).  Wall-clock facts are confined to the schema's designated
 ``wall``/``wall_s`` fields, so seeded replays stay byte-identical modulo
-those fields (see :mod:`repro_torch.telemetry.events`).
+those fields (see :mod:`repro_torch.telemetry.events`).  A span
+wall-clocked by :meth:`trace` (``wall=True``) is read on the unix clock at
+both ends, so ``[wall - wall_s, wall]`` is the block itself, on the clock of
+``torch.profiler``'s host and device events; counters and gauges keep
+``wall`` as their emission time.
 
 Causal context rides the same determinism: :meth:`trace` opens a span
 context (ids from a deterministic allocation counter, **not** the event
@@ -104,6 +108,19 @@ def active(telemetry: "TelemetryRecorder | None"
     return telemetry
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def wall_span(telemetry: "TelemetryRecorder | None", name: str, **attrs):
+    """A wall-clocked :meth:`TelemetryRecorder.trace` context on
+    ``telemetry``, or, where it is None (normalized by :func:`active`), one
+    shared null context that yields None: a hot path's span site costs one
+    ``is None`` check when nothing records."""
+    if telemetry is None:
+        return _NO_SPAN
+    return telemetry.trace(name, wall=True, **attrs)
+
+
 class TelemetryRecorder:
     """Buffers typed events for one run.
 
@@ -171,7 +188,10 @@ class TelemetryRecorder:
         parent last — trees are rebuilt from ids, not emission order).
         The yielded :class:`SpanHandle` takes exit-time facts
         (``handle.set(duration=..., ok=...)``); with ``wall=True`` the
-        block is wall-clocked into ``wall_s`` like :meth:`timed`."""
+        block is wall-clocked into ``wall_s`` like :meth:`timed`: one
+        ``time.time_ns()`` read at each end, the closing one the event's
+        ``wall``, so the span covers ``[wall - wall_s, wall]`` on the unix
+        clock that ``torch.profiler`` gives its host and device events."""
         if not self.enabled:
             yield SpanHandle(None, name, t, tenant, epoch, dict(attrs))
             return
@@ -180,16 +200,20 @@ class TelemetryRecorder:
         if parent_id is _AUTO:
             parent_id = self.current_span()
         self._stack.append(h.span_id)
-        t0 = time.perf_counter() if wall else None
+        t0 = time.time_ns() if wall else None
         try:
             yield h
         finally:
             self._stack.pop()
-            if t0 is not None and h.wall_s is None:
-                h.wall_s = time.perf_counter() - t0
+            t1 = None
+            if t0 is not None:
+                t1 = time.time_ns()
+                if h.wall_s is None:
+                    h.wall_s = (t1 - t0) / 1e9
             self._emit("span", h.name, h.duration, h.t, h.tenant, h.epoch,
                        h.wall_s, h.attrs, span_id=h.span_id,
-                       parent_id=parent_id)
+                       parent_id=parent_id,
+                       wall=None if t1 is None else t1 / 1e9)
 
     def child_span(self, name: str, duration: float, *,
                    t: float | None = None, tenant: str = "",
@@ -210,7 +234,7 @@ class TelemetryRecorder:
     def _emit(self, kind: str, name: str, value: float, t: float | None,
               tenant: str, epoch: int | None, wall_s: float | None,
               attrs: dict, span_id: int | None = None,
-              parent_id=_AUTO) -> None:
+              parent_id=_AUTO, wall: float | None = None) -> None:
         if not self.enabled:
             return
         if parent_id is _AUTO:
@@ -219,7 +243,8 @@ class TelemetryRecorder:
             seq=self._seq, kind=kind, name=name, value=float(value),
             t=self.clock if t is None else float(t), tenant=tenant,
             epoch=epoch, attrs=attrs, span_id=span_id,
-            parent_id=parent_id, wall=time.time(), wall_s=wall_s)
+            parent_id=parent_id,
+            wall=time.time() if wall is None else wall, wall_s=wall_s)
         self._seq += 1
         self._counts[kind] += 1
         self.events.append(ev)

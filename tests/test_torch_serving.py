@@ -441,10 +441,41 @@ def _churn_run(pkg, engine, prompts, n_new):
         eng.step()
     done = eng.run_until_done()
     return dict(reqs=[done[r] for r in rids], seen=seen, replans=eng.replans,
-                misses=cache.misses, hits=cache.hits,
+                misses=cache.misses, hits=cache.hits, raw=list(rec.events),
                 events=[e.canonical() for e in rec.events],
                 counters=[(e.name, e.epoch, e.attrs.get("resolved"))
                           for e in rec.events if e.kind == "counter"])
+
+
+def _as_the_jax_engine_records(events) -> list[str]:
+    """The port's events without the spans its engine and model add (each
+    step's and each layer's, which the JAX engine does not record), in
+    canonical projection as the JAX recorder numbers them: ``seq`` in
+    order, span ids with the dropped ones taken out of the allocation
+    order, each parent the nearest ancestor kept."""
+    import bisect
+    import dataclasses
+
+    from repro_torch.serving.engine import SPANS
+
+    def added(e):
+        return e.kind == "span" and (
+            e.name in SPANS or e.name.startswith(("model.", "layer.")))
+
+    parent = {e.span_id: e.parent_id for e in events if e.span_id is not None}
+    dropped = sorted(e.span_id for e in events if added(e))
+    gone = set(dropped)
+
+    def renumber(sid):
+        while sid in gone:
+            sid = parent[sid]
+        return None if sid is None else sid - bisect.bisect(dropped, sid)
+
+    kept = [e for e in events if not added(e)]
+    return [dataclasses.replace(
+        e, seq=i, span_id=None if e.span_id is None else renumber(e.span_id),
+        parent_id=renumber(e.parent_id)).canonical()
+        for i, e in enumerate(kept)]
 
 
 def test_churn_path_on_the_ports_objects_equals_the_jax_engine(small_lm,
@@ -454,7 +485,9 @@ def test_churn_path_on_the_ports_objects_equals_the_jax_engine(small_lm,
     JAX package's objects under the same trace: the same re-plans, misses
     and hits at every epoch (tx2 absent from the plan while away, the warm
     return free), the same greedy tokens, and the same recorder events in
-    canonical projection."""
+    canonical projection, once the port's step and layer spans are taken
+    out (``_as_the_jax_engine_records``): one ``engine.step`` span a
+    step, the first token's prefill and five decode steps."""
     import types
 
     import repro.core as jcore
@@ -493,8 +526,12 @@ def test_churn_path_on_the_ports_objects_equals_the_jax_engine(small_lm,
     # new membership, a plan without tx2; tx2 returns: a warm hit
     assert ours["seen"] == [(1, 1), (1.5, 1, 2, 1, False),
                             (2.5, 2, 2, 2, True)]
-    for k in ("seen", "replans", "misses", "hits", "counters", "events"):
+    for k in ("seen", "replans", "misses", "hits", "counters"):
         assert ours[k] == theirs[k], k
+    assert _as_the_jax_engine_records(ours["raw"]) == theirs["events"]
+    steps = [e for e in ours["raw"] if e.name == "engine.step"]
+    assert len(steps) == n_new - 1
+    assert len(ours["raw"]) > len(theirs["events"])
     assert [c for c in ours["counters"] if c[0] == "engine.replan"] == [
         ("engine.replan", 1, None), ("engine.replan", 2, None)]
     assert _greedy_parity(jax_lm, prompts, theirs["reqs"], ours["reqs"],
