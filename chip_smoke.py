@@ -870,9 +870,14 @@ def check_prefill_then_decode(model, params, cfg, limit: float,
     extra = extra or {}
     gen = torch.Generator(device="cuda").manual_seed(7)
     toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda")
+    # MoE layers on the dense oracle, the full forwards' lowering: top-k
+    # routing parts at near ties between two paths (mixtral's position P
+    # under the routed lowering at both ends: at layer 3 a gap of 4e-4 sent
+    # it to expert 4 in the decode step and 5 in the full forward)
     _, pcache = model.apply_prefill(params, {
         **extra, "tokens": toks[:, :p],
-        "lengths": torch.full((b,), p, dtype=torch.int32, device="cuda")})
+        "lengths": torch.full((b,), p, dtype=torch.int32, device="cuda")},
+        moe_impl="dense")
     cache = model.init_cache(b, s)
     for k, v in pcache.items():
         if k in ("k", "v"):                 # positions: the prompt's prefix
@@ -882,7 +887,7 @@ def check_prefill_then_decode(model, params, cfg, limit: float,
     got, _ = model.apply_decode(params, cache, {
         "tokens": toks[:, p:],
         "lengths": torch.full((b,), p + 1, dtype=torch.int32,
-                              device="cuda")})
+                              device="cuda")}, moe_impl="dense")
     full = model.apply_train(params, {**extra, "tokens": toks})
     want = full[:, p]
     floor = (model.apply_train(params, {**extra, "tokens": toks[:, :p]})
@@ -928,6 +933,14 @@ OUR_KERNELS = ("flash_bf16", "flash_f32", "decode_split", "decode_combine",
                "ssd_bwd_head", "ssd_bwd_sum", "ssd_bwd_reduce")
 
 
+def _is_copy(name: str) -> bool:
+    """A copy kernel: aten's copies say "copy" in their names.  A CUTLASS
+    GEMM (``torch._grouped_mm``'s) names its copy atoms among its template
+    arguments and is no copy."""
+    low = name.lower()
+    return "copy" in low and "gemm" not in low
+
+
 def _profile(fn, reps: int) -> dict | None:
     """``fn`` run ``reps`` times under torch.profiler; per run: the host
     clock (``wall_ms``), the kernels' device time (``device_ms``), the
@@ -951,7 +964,7 @@ def _profile(fn, reps: int) -> dict | None:
         if e.device_type == DeviceType.CUDA:
             dur = (e.time_range.end - e.time_range.start) / 1e3
             by_name[e.name] = by_name.get(e.name, 0.0) + dur / reps
-            if "copy" in e.name.lower() and dur > copy[1]:
+            if _is_copy(e.name) and dur > copy[1]:
                 copy = (e.name, dur)
     if not by_name:
         return None
@@ -1813,8 +1826,8 @@ def grouped_beside_dense(tol: float):
 
 def check_moe_impls(model, params, cfg, prompt, limit: float) -> None:
     """One prompt (a prefill, then one decode step of the same next token
-    from each run's own cache) through ``moe_impl="dense"`` (the oracle the
-    engine serves) and ``"ep_a2a"`` (the grouped step) on the same weights.
+    from each run's own cache) through ``moe_impl="dense"`` (the oracle)
+    and ``"ep_a2a"`` (the grouped step) on the same weights.
 
     In the dense run every MoE layer also runs the grouped step on the very
     same activations, held to the bf16 TOL (``grouped_beside_dense``).  The

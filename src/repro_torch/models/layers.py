@@ -353,7 +353,7 @@ def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # Mixture-of-Experts FFN
 # --------------------------------------------------------------------------
 
-MOE_IMPLS = ("dense", "ep_a2a", "ep_a2a_q8")
+MOE_IMPLS = ("dense", "ep_a2a", "ep_a2a_q8", "routed")
 
 
 def moe_router(spec: MoESpec, router_w: torch.Tensor, x2d: torch.Tensor
@@ -369,11 +369,12 @@ def moe_router(spec: MoESpec, router_w: torch.Tensor, x2d: torch.Tensor
 
 def moe_dense(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """The oracle lowering: every expert computes every token, and a routed
-    combine mixes their outputs (the JAX package's ``moe_dense``, which its
-    engine serves).  The expert products are batched matmuls of x (1, T, d)
-    broadcast against the (E, d, f) stacks, which reads each stack in place;
-    an einsum may permute a stack into (d, E·f) first, a copy larger than
-    the product at decode."""
+    combine mixes their outputs (the JAX package's ``moe_dense``, which the
+    JAX engine serves; the port serves "routed", ``moe_apply``, and keeps
+    this as the oracle and the training default).  The expert products are
+    batched matmuls of x (1, T, d) broadcast against the (E, d, f) stacks,
+    which reads each stack in place; an einsum may permute a stack into
+    (d, E·f) first, a copy larger than the product at decode."""
     spec = cfg.moe
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
@@ -400,15 +401,19 @@ def moe_dense(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
               impl: str = "dense") -> torch.Tensor:
-    """``impl``: "dense" (``moe_dense``), or the expert-parallel step at an
-    EP axis of width 1 (``moe_ep.moe_ep_a2a``: routed tokens sorted by
-    expert through grouped products), its all-to-all payload in bf16
+    """``impl``: "dense" (``moe_dense``); "routed" (``moe_ep.moe_routed``,
+    inference: each token through its top-k experts alone, every assignment
+    kept); or the expert-parallel step at an EP axis of width 1
+    (``moe_ep.moe_ep_a2a``: routed tokens sorted by expert through grouped
+    products, under a capacity bound), its all-to-all payload in bf16
     ("ep_a2a") or in int8 with fp32 row scales ("ep_a2a_q8")."""
     if impl not in MOE_IMPLS:
         raise ValueError(f"moe impl {impl!r} not in {MOE_IMPLS}")
     if impl == "dense":
         return moe_dense(cfg, p, x)
     from . import moe_ep
+    if impl == "routed":
+        return moe_ep.moe_routed(cfg, p, x)
     return moe_ep.moe_ep_a2a(
         cfg, p, x, a2a_dtype="int8" if impl == "ep_a2a_q8" else "bfloat16")
 

@@ -136,11 +136,14 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_len, dev)
 
     # ------------------------------------------------------------------- steps
-    # ``moe_impl`` is the MoE layers' lowering (``layers.moe_apply``); the
-    # engine passes none and serves "dense", as the JAX engine does.  The
-    # audio family reads ``batch["frames"]`` (B, T_enc, d) and the VLM
-    # ``batch["vision"]`` (B, Nv, d) in train and prefill.  ``telemetry``
-    # (the serving engine's recorder) spans the decoder-only families' parts
+    # ``moe_impl`` is the MoE layers' lowering (``layers.moe_apply``).  The
+    # inference steps default to "routed", each token through its top-k
+    # experts alone, so the serving engine, which passes none, serves it;
+    # training defaults to "dense", and the training loop and the sharded
+    # steps pass their plan's lowering.  The audio family reads
+    # ``batch["frames"]`` (B, T_enc, d) and the VLM ``batch["vision"]``
+    # (B, Nv, d) in train and prefill.  ``telemetry`` (the serving engine's
+    # recorder) spans the decoder-only families' parts
     # (``transformer.forward``); the audio family and the VLM ignore it.
     def apply_train(self, params: dict, batch: dict, *, remat: bool = True,
                     moe_impl: str = "dense", remat_group: int = 1,
@@ -172,7 +175,7 @@ class Model:
         return layers.unembed(self.cfg, params["embed"], x)
 
     def apply_prefill(self, params: dict, batch: dict, *,
-                      moe_impl: str = "dense", telemetry=None
+                      moe_impl: str = "routed", telemetry=None
                       ) -> tuple[torch.Tensor, dict]:
         """Last-position logits (B, 1, V) and the prompt's cache."""
         cfg = self.cfg
@@ -191,7 +194,7 @@ class Model:
                                    telemetry=telemetry)
 
     def apply_decode(self, params: dict, cache: dict, batch: dict, *,
-                     moe_impl: str = "dense", telemetry=None
+                     moe_impl: str = "routed", telemetry=None
                      ) -> tuple[torch.Tensor, dict]:
         """One token per sequence at position ``lengths-1``; ``cache`` is
         updated in place and returned."""

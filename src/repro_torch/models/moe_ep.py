@@ -11,7 +11,12 @@ and what is left is its local step (``moe_ep.py:147-225`` there):
      below ``cap`` are kept (the reference's ``pos < cap`` at width 1);
   3. the kept assignments sorted by expert, and three grouped products over
      the experts' token groups (gate, up, then down after the fp32 SiLU);
-  4. the rows put back in assignment order and combined, weighted, in fp32.
+  4. each row weighted in fp32 and added to its token (``index_add_``).
+
+The same step without the capacity bound, every assignment kept, is the
+inference lowering (``moe_routed``, "routed" in ``layers.moe_apply``), which
+``Model.apply_prefill`` and ``apply_decode`` take by default: the serving
+engine computes each token's top-k experts and no other.
 
 With a mesh published, the step is the reference's across the ranks of the
 EP axis (``_ep_step``): each rank routes its own token slice (or, when the
@@ -98,6 +103,27 @@ class A2AInt8Fn(torch.autograd.Function):
         return _round_trip_i8(g)
 
 
+#: calls of the step at an EP axis of width 1 in this process (``moe_routed``,
+#: and ``moe_ep_a2a`` with no mesh published), as the kernel wrappers count
+#: their ``launches``
+calls = 0
+
+
+def moe_routed(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The inference lowering ("routed"): the step at an EP axis of width 1
+    over every one of the t·k assignments, whatever the capacity factor.
+    This is ``layers.moe_dense``'s arithmetic (its router, bf16 products,
+    the SiLU in fp32 rounded to bf16, the fp32 combine with the same
+    weights) without the experts a token is not routed to.  The expert
+    stacks must be whole: under a published mesh or tensor-parallel state
+    they may be shards, and the sharded steps pass their plan's lowering."""
+    if shard_ctx.get_mesh() is not None or shard_ctx.tp() is not None:
+        raise ValueError("moe impl 'routed' runs on whole expert stacks in "
+                         "this process; a sharded step passes its plan's "
+                         "moe_impl")
+    return _width_one(cfg, p, x, None, "bfloat16")
+
+
 def moe_ep_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                axis: str | None = None,
                capacity_factor: float | None = None,
@@ -111,47 +137,58 @@ def moe_ep_a2a(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
     if a2a_dtype not in A2A_DTYPES:
         raise ValueError(f"a2a_dtype {a2a_dtype!r} not in {A2A_DTYPES}")
     mesh = shard_ctx.get_mesh()
+    cf = capacity_factor or cfg.moe.capacity_factor
     if mesh is not None:
         return _ep_step(cfg, p, x, mesh,
-                        axis or shard_ctx.get_ep_axis() or "model",
-                        capacity_factor or cfg.moe.capacity_factor,
+                        axis or shard_ctx.get_ep_axis() or "model", cf,
                         a2a_dtype)
+    b, s, _ = x.shape
+    return _width_one(cfg, p, x, capacity(b * s, cfg.moe.top_k, cf),
+                      a2a_dtype)
+
+
+def _width_one(cfg: ArchConfig, p: dict, x: torch.Tensor, cap: int | None,
+               a2a_dtype: str) -> torch.Tensor:
+    """The step at an EP axis of width 1: of the t·k assignments in flat
+    order the first ``cap`` (all of them with None), sorted by expert,
+    through the three grouped products, weighted and added to their tokens
+    in fp32.  It reads nothing back to the host."""
+    global calls
+    calls += 1
     spec = cfg.moe
     k = spec.top_k
     b, s, d = x.shape
     t = b * s
     x2 = x.reshape(t, d)
     vals, idx = L.moe_router(spec, p["router"], x2)
-    cap = capacity(t, k, capacity_factor or spec.capacity_factor)
-    n = min(t * k, cap)
-    flat_e = idx.reshape(-1)[:n]
-    flat_w = vals.reshape(-1)[:n]
-    flat_tok = torch.arange(n, device=x.device) // k
+    n = t * k if cap is None else min(t * k, cap)
     # sort by expert; the groups' end offsets are cumsum(bincount(ids, E)),
     # read off the sorted ids (CUDA's bincount syncs with the host for the
     # largest id, searchsorted does not)
-    sorted_e, order = torch.sort(flat_e, stable=True)
+    sorted_e, order = torch.sort(idx.reshape(-1)[:n], stable=True)
     offs = torch.searchsorted(
         sorted_e, torch.arange(spec.num_experts, dtype=sorted_e.dtype,
-                               device=x.device), right=True).to(torch.int32)
-    xs = x2[flat_tok[order]]
+                               device=x.device), right=True, out_int32=True)
+    tok = order // k                          # each sorted row's token
+    xs = x2[tok]
     if a2a_dtype == "int8":
         xs = A2AInt8Fn.apply(xs)
     # the products in bf16 (the reference's literal jnp.bfloat16, which is
-    # layers.COMPUTE_DTYPE)
+    # layers.COMPUTE_DTYPE); F.silu on bf16 evaluates in fp32 and rounds
     bf = L.COMPUTE_DTYPE
     xs = xs.to(bf)
     gate = torch._grouped_mm(xs, p["w_gate"].to(bf), offs=offs)
     up = torch._grouped_mm(xs, p["w_up"].to(bf), offs=offs)
-    h = F.silu(gate.float()).to(bf) * up
+    h = F.silu(gate) * up
     out = torch._grouped_mm(h, p["w_down"].to(bf), offs=offs)
     if a2a_dtype == "int8":
         out = A2AInt8Fn.apply(out.float())
-    back = torch.empty_like(out)
-    back[order] = out                                   # unsort
-    contrib = back.float() * flat_w[:, None]
+    # weighted in fp32 (a bf16 row times fp32 weights computes in fp32) and
+    # added to the tokens in sorted order: at k = 2 each token's sum is
+    # two terms onto zero, the same in either order
+    contrib = out * vals.reshape(-1)[order][:, None]
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    y.index_add_(0, flat_tok, contrib)
+    y.index_add_(0, tok, contrib)
     return y.reshape(b, s, d).to(x.dtype)
 
 

@@ -20,9 +20,10 @@ Given a telemetry recorder (the serving engine passes its own), ``forward``
 spans its parts on it, each wall-clocked on the host: ``model.embed``, then
 per layer ``layer.norm`` (ln1, and ln2 where the layer has one),
 ``layer.attention``, ``layer.ssm``, ``layer.moe`` or ``layer.mlp`` with the
-attr ``layer`` (the layer's index), then ``model.head``.  They time the
-host's enqueue; the device's time under each is the profiler's, joined by
-launch time.  Training and the sharded steps pass none.
+attr ``layer`` (the layer's index; ``layer.moe`` also ``impl``, its
+lowering), then ``model.head``.  They time the host's enqueue; the
+device's time under each is the profiler's, joined by launch time.
+Training and the sharded steps pass none.
 """
 
 from __future__ import annotations
@@ -281,8 +282,8 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
         return (None if layer_cache is None else
                 {k: layer_cache[k] for k in keys})
 
-    def span(name):
-        return _span(telemetry, name, layer=index)
+    def span(name, **attrs):
+        return _span(telemetry, name, layer=index, **attrs)
 
     with span("layer.norm"):
         h = L.apply_norm(cfg, p["ln1"], x)
@@ -305,7 +306,7 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     with span("layer.norm"):
         h2 = L.apply_norm(cfg, p["ln2"], x)
     if cfg.family == "moe":
-        with span("layer.moe"):
+        with span("layer.moe", impl=moe_impl):
             y = L.moe_apply(cfg, p["moe"], h2, impl=moe_impl)
     else:
         with span("layer.mlp"):

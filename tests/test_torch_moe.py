@@ -13,6 +13,7 @@ test_torch_model.py holds them.
 """
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -40,6 +41,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe_ep  # noqa: E402
 from repro_torch.models.convert import from_jax  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from test_torch_model import TOL, _close, _close_cache  # noqa: E402
 from test_torch_ssm import _flat, _fill  # noqa: E402
@@ -274,6 +276,8 @@ def test_train_logits_match_jax(pair, monkeypatch):
 
 
 def test_prefill_logits_and_cache_match_jax(pair, monkeypatch):
+    """The JAX model's dense MoE against the port's, ``moe_impl="dense"``
+    (the inference steps' default is "routed")."""
     cfg, model, params, _, jmodel, jparams = pair
     toks = _tokens(cfg, 1)
     lens = np.asarray([S, S - 7], np.int32)
@@ -281,7 +285,7 @@ def test_prefill_logits_and_cache_match_jax(pair, monkeypatch):
         jparams, {"tokens": jnp.asarray(toks), "lengths": jnp.asarray(lens)})
     (got, cache), gaps = _routed(monkeypatch, lambda: model.apply_prefill(
         params, {"tokens": torch.from_numpy(toks),
-                 "lengths": torch.from_numpy(lens)}))
+                 "lengths": torch.from_numpy(lens)}, moe_impl="dense"))
     assert got.shape == (B, 1, cfg.vocab)
     _close_routed(got, want, gaps)
     assert set(cache) == set(jcache) == {"k", "v"}
@@ -291,7 +295,8 @@ def test_prefill_logits_and_cache_match_jax(pair, monkeypatch):
 
 def test_decode_logits_and_cache_match_jax(pair, monkeypatch):
     """One decode step from the same (JAX-built) cache: logits (with the
-    routing near-tie rule), and k/v written in place at lengths-1 only."""
+    routing near-tie rule), and k/v written in place at lengths-1 only;
+    the port's MoE layers ``moe_impl="dense"``, as the JAX model's."""
     cfg, model, params, _, jmodel, jparams = pair
     toks = _tokens(cfg, 2)
     p = S - 1
@@ -308,7 +313,8 @@ def test_decode_logits_and_cache_match_jax(pair, monkeypatch):
                           "lengths": jnp.asarray(lens)})
     (got, new), gaps = _routed(monkeypatch, lambda: model.apply_decode(
         params, cache, {"tokens": torch.from_numpy(toks[:, p:]),
-                        "lengths": torch.from_numpy(lens)}))
+                        "lengths": torch.from_numpy(lens)},
+        moe_impl="dense"))
     assert new is cache
     _close_routed(got, want, gaps)
     for k in ("k", "v"):
@@ -336,8 +342,8 @@ def test_prefill_then_decode_matches_full_forward(pair):
 @pytest.mark.parametrize("step", ["train", "prefill", "decode"])
 def test_ep_a2a_logits_match_dense(pair, step):
     """The whole model through ``moe_impl="ep_a2a"`` against "dense", at
-    each step kind: the engine serves "dense" and the grouped step is the
-    same function."""
+    each step kind (the engine serves "routed", the same grouped step with
+    every assignment kept: tests/test_torch_moe_routed_serving.py)."""
     cfg, model, params, _, _, _ = pair
     toks = torch.from_numpy(_tokens(cfg, 4))
     lens = torch.full((B,), S, dtype=torch.int32)
@@ -399,13 +405,18 @@ def test_init_matches_the_jax_param_specs(aid):
 # serving
 # --------------------------------------------------------------------------
 
-def test_engine_emits_the_jax_engines_greedy_tokens(pair):
+def test_engine_emits_the_jax_engines_greedy_tokens(pair, monkeypatch):
     """The port's engine and the JAX engine, on the same weights and prompts,
     emit the same greedy tokens; where they first part, the JAX logits at
     that step must have a top-1/top-2 margin under 5e-2 (the near-tie rule
     of test_torch_serving.py) and the comparison stops there.  The port's
-    engine serves "dense" and launches no kernel on CPU tensors."""
+    inference steps are pinned to "dense" here, the JAX engine's lowering
+    (the port's engine serves "routed"), and launch no kernel on CPU
+    tensors."""
     cfg, model, params, _, jmodel, jparams = pair
+    for name in ("apply_prefill", "apply_decode"):
+        monkeypatch.setattr(Model, name, functools.partialmethod(
+            getattr(Model, name), moe_impl="dense"))
     prompts = [np.random.default_rng(i).integers(
         0, cfg.vocab, size=n).astype(np.int32)
         for i, n in enumerate((3, 11, 5))]
