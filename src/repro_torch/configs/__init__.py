@@ -21,12 +21,17 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)
+# the port's own configurations, which the JAX package does not have:
+# ``get_config`` resolves them, ``ARCH_IDS`` stays the set both share
+PORT_ONLY = {"granite-4.0-h-small": "granite_4_0_h_small"}
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    name = _MODULES.get(arch_id, PORT_ONLY.get(arch_id))
+    if name is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_MODULES) + sorted(PORT_ONLY)}")
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
 
 

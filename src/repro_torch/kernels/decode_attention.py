@@ -170,12 +170,13 @@ def _check_decode(q, k_cache, v_cache, lengths, window):
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: int | None = None, k_offset: int = 0,
-                     return_lse: bool = False):
+                     return_lse: bool = False, scale: float | None = None):
     """q: (B, 1, Hq, D); caches: (B, S, Hkv, D), rows [k_offset, k_offset +
     S) of the sequence; lengths: (B,) valid entries of the whole sequence.
     Returns (B, 1, Hq, D) in q's dtype, and with ``return_lse`` also each
     row's log-sum-exp of its scaled scores, (B, Hq) fp32 (``ref.NEG_INF``
-    for a row with no valid key in the share).  Semantics of
+    for a row with no valid key in the share).  ``scale`` multiplies the
+    scores (1 / sqrt(D) where None).  Semantics of
     ``repro.kernels.ref.decode_attention_naive`` on a whole cache."""
     global launches
     check_no_grad("decode_attention",
@@ -203,7 +204,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         plan["warps"], b, s, hq, hkv,
         q.stride(0), k_cache.stride(0), k_cache.stride(1),
         v_cache.stride(0), v_cache.stride(1), w, int(k_offset),
-        1.0 / math.sqrt(d), stream)
+        1.0 / math.sqrt(d) if scale is None else float(scale), stream)
     launches += 1
     raise_on_error(err, "decode_attention")
     return (out, lse) if return_lse else out

@@ -75,11 +75,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
                         q_offset: int = 0,
                         lengths: torch.Tensor | None = None,
-                        with_lse: bool = False
+                        with_lse: bool = False, scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The forward kernel: (B, Tq, Hq, D) output in q's dtype and, with
     ``with_lse``, each row's natural-log log-sum-exp, fp32 (B, Hq, Tq)
-    (NEG_INF for a row with no valid key), else None.  Semantics of
+    (NEG_INF for a row with no valid key), else None.  ``scale`` multiplies
+    the scores (1 / sqrt(D) where None).  Semantics of
     ``ref.attention_lse_naive``."""
     global launches
     w, lens = _check_qkv(q, k, v, window, lengths)
@@ -96,7 +97,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if lens is None else lens.data_ptr(),
         b, tq, tk, hq, hkv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), int(causal), int(q_offset), w,
-        1.0 / math.sqrt(d), stream)
+        1.0 / math.sqrt(d) if scale is None else float(scale), stream)
     launches += 1
     raise_on_error(err, "flash_attention")
     return out, lse
@@ -235,18 +236,26 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0,
-                    lengths: torch.Tensor | None = None) -> torch.Tensor:
+                    lengths: torch.Tensor | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """q: (B, Tq, Hq, D); k/v: (B, Tk, Hkv, D).  Returns (B, Tq, Hq, D) in
     q's dtype.  Semantics of ``repro.kernels.ref.attention_naive``.  Under
     grad with an input that requires it, the forward kernel also writes the
     LSE and the result's ``grad_fn`` runs the backward kernel
-    (``FlashAttentionFn``); otherwise one forward launch without LSE."""
+    (``FlashAttentionFn``); otherwise one forward launch without LSE.
+    ``scale`` (the scores' multiplier, 1 / sqrt(D) where None) is the
+    forward's alone: the backward kernel scales by 1 / sqrt(D)."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if scale is not None:
+            raise NotImplementedError(
+                "flash attention's backward scales by 1/sqrt(D); a given "
+                "scale runs without grad")
         return FlashAttentionFn.apply(q, k, v, lengths, causal, window,
                                       q_offset, _kernel_fwd,
                                       flash_attention_bwd)
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, lengths=lengths)[0]
+                               q_offset=q_offset, lengths=lengths,
+                               scale=scale)[0]
 
 
 # --------------------------------------------------------------------------

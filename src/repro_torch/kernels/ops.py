@@ -71,20 +71,24 @@ def _abstract(x) -> bool:
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
-                    lengths=None, block_q=512, block_k=512):
+                    lengths=None, block_q=512, block_k=512, scale=None):
+    """``scale`` multiplies the scores (1 / sqrt(D) where None)."""
     if _abstract(q):
         return fa.flash_attention_abstract(q, k, v, causal=causal,
                                            window=window, q_offset=q_offset,
                                            lengths=lengths)
     if _on_cuda(q):
         return fa.flash_attention(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset, lengths=lengths)
+                                  q_offset=q_offset, lengths=lengths,
+                                  scale=scale)
     if _BACKEND == "naive":
         return ref.attention_naive(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, lengths=lengths)
+                                   q_offset=q_offset, lengths=lengths,
+                                   scale=scale)
     return ref.attention_blocked(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, lengths=lengths,
-                                 block_q=block_q, block_k=block_k)
+                                 block_q=block_q, block_k=block_k,
+                                 scale=scale)
 
 
 # --------------------------------------------------------------------------
@@ -92,14 +96,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 # --------------------------------------------------------------------------
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window=None,
-                     k_offset=0, return_lse=False):
+                     k_offset=0, return_lse=False, scale=None):
     """One token against a cache, or against a rank's share of one that
     starts at the global position ``k_offset``; with ``return_lse`` also the
-    rows' log-sum-exps, for ``decode_merge``."""
+    rows' log-sum-exps, for ``decode_merge``.  ``scale`` multiplies the
+    scores (1 / sqrt(D) where None)."""
     kw = dict(window=window, k_offset=k_offset, return_lse=return_lse)
     if _abstract(q):
         return da.decode_attention_abstract(q, k_cache, v_cache, lengths,
                                             **kw)
+    kw["scale"] = scale
     if _on_cuda(q):
         return da.decode_attention(q, k_cache, v_cache, lengths, **kw)
     return ref.decode_attention_naive(q, k_cache, v_cache, lengths, **kw)

@@ -50,15 +50,21 @@ def _as_lengths(lengths, b: int, device) -> torch.Tensor | None:
 # Attention — naive oracle
 # --------------------------------------------------------------------------
 
+def _scale(d: int, scale: float | None) -> float:
+    """The scores' scale: ``scale`` where given, else 1 / sqrt(d)."""
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
 def _masked_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
-                   window: int | None, q_offset: int, lengths
+                   window: int | None, q_offset: int, lengths,
+                   scale: float | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scaled fp32 scores (B, Hkv, G, Tq, Tk), NEG_INF where masked, and the
     mask, broadcastable to them."""
     b, tq, hq, d = q.shape
     _, tk, hkv, _ = k.shape
     qg = _gqa_expand(q, hkv)
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     qpos = q_offset + torch.arange(tq, device=q.device)[:, None]
     kpos = torch.arange(tk, device=q.device)[None, :]
@@ -79,17 +85,21 @@ def _masked_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
 def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0,
-                    lengths: torch.Tensor | None = None) -> torch.Tensor:
+                    lengths: torch.Tensor | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Full-materialisation attention.  ``q_offset`` is the absolute position
-    of q[0]; ``lengths`` (B,) masks the KV suffix (per-sequence fill)."""
+    of q[0]; ``lengths`` (B,) masks the KV suffix (per-sequence fill);
+    ``scale`` multiplies the scores (1 / sqrt(D) by default)."""
     return attention_lse_naive(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, lengths=lengths)[0]
+                               q_offset=q_offset, lengths=lengths,
+                               scale=scale)[0]
 
 
 def attention_lse_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
                         q_offset: int = 0,
-                        lengths: torch.Tensor | None = None
+                        lengths: torch.Tensor | None = None,
+                        scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """``attention_naive``'s output and the natural-log log-sum-exp of each
     row's scaled scores over its valid keys, fp32 (B, Hq, Tq); NEG_INF for a
@@ -97,7 +107,7 @@ def attention_lse_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with its ``lse`` output, which the backward reads."""
     b, tq, hq, d = q.shape
     s, mask = _masked_scores(q, k, causal=causal, window=window,
-                             q_offset=q_offset, lengths=lengths)
+                             q_offset=q_offset, lengths=lengths, scale=scale)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)         # 0 on masked rows
     l = p.sum(-1, keepdim=True)
@@ -213,14 +223,15 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int | None = None,
                       q_offset: int = 0,
                       lengths: torch.Tensor | None = None,
-                      block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+                      block_q: int = 512, block_k: int = 512,
+                      scale: float | None = None) -> torch.Tensor:
     """Flash algorithm as loops over q blocks (outer) and kv blocks (inner)
     with running (m, l, acc).  Never materialises Tq×Tk."""
     b, tq, hq, d = q.shape
     _, tk, hkv, _ = k.shape
     g = hq // hkv
     bq, bk = min(block_q, tq), min(block_k, tk)
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     dev = q.device
     klen = _as_lengths(lengths, b, dev)
     if klen is None:
@@ -266,17 +277,19 @@ def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention_naive(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, lengths: torch.Tensor, *,
                            window: int | None = None, k_offset: int = 0,
-                           return_lse: bool = False):
+                           return_lse: bool = False,
+                           scale: float | None = None):
     """q: (B, 1, Hq, D); caches: (B, S, Hkv, D) — rows [k_offset, k_offset
     + S) of the sequence (0: the whole cache); lengths: (B,) — number of
     valid entries of the whole sequence (the new token's position is
     lengths-1).  With ``return_lse`` also each row's log-sum-exp of its
     scaled scores over the share's valid keys, (B, Hq) fp32, NEG_INF for a
-    row without one."""
+    row without one.  ``scale`` multiplies the scores (1 / sqrt(D) by
+    default)."""
     b, _, hq, d = q.shape
     _, s, hkv, _ = k_cache.shape
     qg = _gqa_expand(q, hkv)[:, 0]                       # (b,hkv,g,d)
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(d, scale)
     scores = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
                           k_cache.float()) * scale
     lengths = _as_lengths(lengths, b, q.device)

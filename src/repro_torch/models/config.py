@@ -5,6 +5,12 @@ The port's own copy of the JAX package's ``ArchConfig``/``MoESpec``/``SSMSpec``,
 to their counterparts so ``--arch`` resolves to the same configuration in both
 packages.  ``reduced()`` produces the small same-family config the CPU tests
 and the reduced serving CLI use.
+
+The port adds fields of its own, each with a default under which every
+configuration the two packages share computes as before: the ``hybrid_moe``
+family's layer pattern (``mixers``), its μP scalars, NoPE and a given
+attention scale, the shared expert (``MoESpec.d_ff_shared``), and the Mamba-2
+conv bias and gated-norm epsilon (``SSMSpec``).
 """
 
 from __future__ import annotations
@@ -12,7 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid", "audio", "vlm"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "hybrid_moe", "audio",
+                 "vlm"]
+# a ``hybrid_moe`` layer's mixer, one letter a layer in ``ArchConfig.mixers``
+MIXERS = {"M": "mamba", "A": "attention"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +31,9 @@ class MoESpec:
     d_ff_expert: int
     capacity_factor: float = 1.25
     router_dtype: str = "float32"
+    # a SwiGLU expert of this width that every token passes through beside
+    # its routed ones (0: none)
+    d_ff_shared: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +43,8 @@ class SSMSpec:
     expand: int = 2
     chunk: int = 128
     conv_width: int = 4
+    conv_bias: bool = False               # a bias on the depthwise conv
+    norm_eps: float = 1e-6                # the gated RMSNorm's epsilon
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -70,12 +84,38 @@ class ArchConfig:
     n_vision_tokens: int = 1601
     # notes for DESIGN/EXPERIMENTS
     source: str = ""
+    # hybrid_moe: each layer's mixer, one letter a layer (``MIXERS``); None
+    # for the other families, whose layers are all of one kind
+    mixers: str | None = None
+    # μP scalars: the embedding's rows times ``embedding_multiplier``, each
+    # residual branch times ``residual_multiplier``, the logits divided by
+    # ``logits_scaling``
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attn_scale: float | None = None       # default 1 / sqrt(hd)
+    rope: bool = True                     # False: no positional embedding
+
+    def __post_init__(self):
+        if (self.family == "hybrid_moe") != (self.mixers is not None):
+            raise ValueError("mixers is given for the hybrid_moe family and "
+                             "only for it")
+        if self.mixers is not None and (
+                len(self.mixers) != self.n_layers
+                or set(self.mixers) - set(MIXERS)):
+            raise ValueError(f"mixers {self.mixers!r}: one of "
+                             f"{sorted(MIXERS)} for each of the "
+                             f"{self.n_layers} layers")
 
     # ------------------------------------------------------------------ derived
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim is not None else (
             self.d_model // max(self.n_heads, 1))
+
+    def n_mixer_layers(self, mixer: str) -> int:
+        """hybrid_moe: the layers whose mixer is ``mixer`` ("M" or "A")."""
+        return self.mixers.count(mixer)
 
     @property
     def attention_free(self) -> bool:
@@ -104,7 +144,9 @@ class ArchConfig:
         else:
             ffn_dense = 2 * d * self.d_ff
         per_layer = 0.0
-        if self.family == "ssm":
+        if self.family == "hybrid_moe":
+            per_layer = 0.0                 # each layer by its mixer, below
+        elif self.family == "ssm":
             s = self.ssm
             di = s.d_inner(d)
             nh = s.n_heads(d)
@@ -125,6 +167,9 @@ class ArchConfig:
         else:
             per_layer = attn + ffn_dense
         total = self.n_layers * per_layer
+        if self.family == "hybrid_moe":
+            total += sum(self.hybrid_moe_layer_params(m, active_only)
+                         for m in self.mixers)
         if self.encoder_layers:
             # encoder self-attn+ffn, decoder already counted; add cross-attn
             total += self.encoder_layers * (attn + ffn_dense)
@@ -135,6 +180,26 @@ class ArchConfig:
         emb = self.vocab * d
         total += emb if self.tie_embeddings else 2 * emb
         return float(total)
+
+    def hybrid_moe_layer_params(self, mixer: str,
+                                active_only: bool = False) -> float:
+        """One ``hybrid_moe`` layer's parameters but its norms': its mixer's
+        ("M": the Mamba-2 fused input projection (z, x, B, C, dt), the conv
+        and its bias, A_log, D, dt_bias, the gated norm and the output
+        projection; "A": the attention projections), the router's, the
+        routed experts' (the top_k a token uses with ``active_only``) and
+        the shared expert's."""
+        d, m = self.d_model, self.moe
+        if mixer == "M":
+            s = self.ssm
+            di, n, nh = s.d_inner(d), s.d_state, s.n_heads(d)
+            conv = (s.conv_width + int(s.conv_bias)) * (di + 2 * n)
+            mix = d * (2 * di + 2 * n + nh) + conv + 3 * nh + di + di * d
+        else:
+            mix = 2 * d * self.hd * (self.n_heads + self.n_kv_heads)
+        e = m.top_k if active_only else m.num_experts
+        return float(mix + d * m.num_experts
+                     + 3 * d * (e * m.d_ff_expert + m.d_ff_shared))
 
     def reduced(self) -> "ArchConfig":
         """Small same-family config for CPU smoke tests."""
@@ -151,6 +216,12 @@ class ArchConfig:
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=8, head_dim=16,
                                             chunk=8)
+        if self.mixers is not None:
+            # both kinds of layer, attention between two Mamba layers, and
+            # the shared expert
+            kw["n_layers"], kw["mixers"] = 3, "MAM"
+            kw["moe"] = dataclasses.replace(
+                kw["moe"], d_ff_shared=min(self.moe.d_ff_shared, 96))
         if self.encoder_layers:
             kw["encoder_layers"] = 2
         if self.cross_attn_every:

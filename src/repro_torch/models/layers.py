@@ -123,6 +123,9 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                  ``causal``; decode attends over all Tk keys and writes no
                  cache.
 
+    Without ``cfg.rope`` neither query nor key is roped (NoPE); the scores
+    are scaled by ``cfg.attn_scale`` where given, else 1 / sqrt(hd).
+
     Under a sequence split (``sharding.ctx.seq_group``), x is this rank's
     slice of the sequence and ``positions`` are global: "full" self-attention
     gathers k and v over the split (its backward reduce-scatters their
@@ -150,15 +153,17 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                 [q, k, v], [_wsplit(p["wq"], hq * hd),
                             _wsplit(p["wk"], hkv * hd),
                             _wsplit(p["wv"], hkv * hd)], heads)
-        q = rope(q.reshape(b, t, -1, hd), positions, cfg.rope_theta)
-        k = rope(k.reshape(b, t, -1, hd), positions, cfg.rope_theta)
+        q, k = q.reshape(b, t, -1, hd), k.reshape(b, t, -1, hd)
+        if cfg.rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
         v = v.reshape(b, t, -1, hd)
     else:
         k, v = kv_override
         if tp is not None:
             (q,) = _cols_to([q], [_wsplit(p["wq"], hq * hd)], heads)
         q = q.reshape(b, t, -1, hd)
-        if causal:
+        if causal and cfg.rope:
             q = rope(q, positions, cfg.rope_theta)
 
     if mode == "decode" and kv_override is None:
@@ -186,19 +191,21 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
                                             c[bidx, slot])
             out, lse = ops.decode_attention(q, cache["k"], cache["v"],
                                             lengths, window=window,
-                                            k_offset=off, return_lse=True)
+                                            k_offset=off, return_lse=True,
+                                            scale=cfg.attn_scale)
             out = ops.decode_merge(*comm.all_gather_out_lse(out, lse,
                                                             seq.group))
         else:
             cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
             cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
             out = ops.decode_attention(q, cache["k"], cache["v"], lengths,
-                                       window=window)
+                                       window=window, scale=cfg.attn_scale)
         new_cache = cache
     elif mode == "decode":                                # cross, static KV
         full = torch.full((b,), k.shape[1], dtype=torch.int32,
                           device=x.device)
-        out = ops.decode_attention(q, k, v, full, window=None)
+        out = ops.decode_attention(q, k, v, full, window=None,
+                                   scale=cfg.attn_scale)
         new_cache = cache
     else:
         group = None if kv_override is not None else shard_ctx.seq_group()
@@ -207,7 +214,8 @@ def attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
             kg, vg = (comm.all_gather_autograd(a, 1, group) for a in (k, v))
             q_offset = shard_ctx.seq_offset(t)
         out = ops.flash_attention(q, kg, vg, causal=causal, window=window,
-                                  q_offset=q_offset, lengths=lengths)
+                                  q_offset=q_offset, lengths=lengths,
+                                  scale=cfg.attn_scale)
         new_cache = {"k": k, "v": v}
         if tp is not None and kv_override is None:
             new_cache = {"k": _seq_share(k, tp.kv_seq_tp),
@@ -336,17 +344,20 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")              # geglu / gelu
 
 
-def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Under tensor parallelism the rank's ``w_gate``/``w_up`` columns and
-    ``w_down`` rows, the output all-reduced."""
+def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor,
+        d_ff: int | None = None) -> torch.Tensor:
+    """``d_ff`` wide (``cfg.d_ff`` by default; the shared expert passes its
+    own).  Under tensor parallelism the rank's ``w_gate``/``w_up`` columns
+    and ``w_down`` rows, the output all-reduced."""
+    ff = cfg.d_ff if d_ff is None else d_ff
     xc = x.to(COMPUTE_DTYPE)
     if "w_gate" in p:
         h = _act(cfg, xc @ p["w_gate"].to(COMPUTE_DTYPE)) * (
             xc @ p["w_up"].to(COMPUTE_DTYPE))
     else:
         h = _act(cfg, xc @ p["w_up"].to(COMPUTE_DTYPE))
-    return _row_split_out(h, p["w_down"], cfg.d_ff,
-                          _wsplit(p["w_up"], cfg.d_ff)).to(x.dtype)
+    return _row_split_out(h, p["w_down"], ff,
+                          _wsplit(p["w_up"], ff)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -423,22 +434,28 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
 # --------------------------------------------------------------------------
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
-                 conv_state: torch.Tensor | None
+                 conv_state: torch.Tensor | None,
+                 bias: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv, width cw.  xbc: (B,T,C); w: (cw,C).
-    conv_state: (B,cw-1,C) carried context (decode) or None (prefill).
-    Returns (out (B,T,C), new_state (B,cw-1,C))."""
+    """Depthwise causal conv, width cw, and its bias (C,) where given, then
+    SiLU.  xbc: (B,T,C); w: (cw,C).  conv_state: (B,cw-1,C) carried
+    context (decode) or None (prefill).  Returns (out (B,T,C), new_state
+    (B,cw-1,C))."""
     cw, t = w.shape[0], xbc.shape[1]
     if conv_state is None:
         conv_state = xbc.new_zeros((xbc.shape[0], cw - 1, xbc.shape[2]))
     full = torch.cat([conv_state, xbc], 1)                 # (B,T+cw-1,C)
     out = sum(full[:, i:i + t] * w[i][None, None] for i in range(cw))
+    if bias is not None:
+        out = out + bias
     return F.silu(out), full[:, -(cw - 1):]
 
 
 def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
                 cache: dict | None = None) -> tuple[torch.Tensor, dict]:
     """One Mamba-2 mixer.  cache = {"h": (B,nh,hd,n), "conv": (B,cw-1,C)}.
+    With ``ssm.conv_bias`` the conv adds ``p["conv_b"]`` (C,); the gated
+    RMSNorm takes ``ssm.norm_eps``.
 
     mode="decode" (T == 1) steps the recurrence from ``cache`` and writes the
     new state into it in place (the engine owns the cache; the JAX engine
@@ -482,8 +499,13 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     if seq is not None:
         conv_state, last = _seq_conv_context(conv_in, p["conv"].shape[0],
                                              seq, conv_state)
+    bias = None
+    if spec.conv_bias:
+        if tp is not None:
+            raise NotImplementedError("a conv bias under tensor parallelism")
+        bias = p["conv_b"].to(COMPUTE_DTYPE)
     conv_out, new_conv = _causal_conv(conv_in, p["conv"].to(COMPUTE_DTYPE),
-                                      conv_state)
+                                      conv_state, bias)
     if seq is not None:
         new_conv = last
     (conv_out,) = _cols_to([conv_out], [conv_g], NO_SPLIT)
@@ -514,9 +536,9 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     y = y.reshape(b, t, -1)
     g = y * F.silu(z.float()).to(y.dtype)
     if tp is None:
-        y, src = rmsnorm(g, p["norm"]), NO_SPLIT
+        y, src = rmsnorm(g, p["norm"], spec.norm_eps), NO_SPLIT
     else:
-        y, src = _gated_norm_tp(g, p["norm"], di, heads_g)
+        y, src = _gated_norm_tp(g, p["norm"], di, heads_g, spec.norm_eps)
     out = _row_split_out(y.to(COMPUTE_DTYPE), p["w_out"], di, src)
     return out.to(x.dtype), new_cache
 
@@ -576,7 +598,7 @@ def _ssd_seq_split(x, dt, A, B, C, D, chunk: int, h0, group
 
 
 def _gated_norm_tp(g: torch.Tensor, w: torch.Tensor, di: int,
-                   src: shard_ctx.Group
+                   src: shard_ctx.Group, eps: float
                    ) -> tuple[torch.Tensor, shard_ctx.Group]:
     """``rmsnorm`` over the d_inner channels of ``g`` under tensor
     parallelism: ``g`` whole, or the rank's head channels over ``src``,
@@ -587,7 +609,7 @@ def _gated_norm_tp(g: torch.Tensor, w: torch.Tensor, di: int,
     ss = (gf * gf).sum(-1, keepdim=True)
     if src.size > 1:
         ss = _reduce(ss, src)
-    scale = torch.rsqrt(ss / di + 1e-6)
+    scale = torch.rsqrt(ss / di + eps)
     dst = _wsplit(w, di)
     (g,) = _cols_to([g], [src], dst)
     return ((g.float() * scale) * (1.0 + w)).to(g.dtype), dst
@@ -624,7 +646,11 @@ def embed(p: dict, tokens: torch.Tensor, vocab: int | None = None
 
 
 def unembed(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """(B, T, d) → (B, T, V) fp32 logits; under tensor parallelism with the
-    vocab split, the rank's vocab slice of them (``specs.logits_pspec``)."""
+    """(B, T, d) → (B, T, V) fp32 logits, divided by ``cfg.logits_scaling``
+    where it is not 1; under tensor parallelism with the vocab split, the
+    rank's vocab slice of them (``specs.logits_pspec``)."""
     w = p["embedding"].T if cfg.tie_embeddings else p["head"]
-    return (x.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)).float()
+    logits = (x.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)).float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits

@@ -41,9 +41,13 @@ def _mlp_flops(cfg: ArchConfig, d_ff: int | None = None) -> float:
 
 
 def _moe_flops(cfg: ArchConfig) -> float:
+    """The router, the top-k experts and the shared expert, where there is
+    one."""
     m = cfg.moe
     router = 2.0 * cfg.d_model * m.num_experts
     expert = m.top_k * 2.0 * 3 * cfg.d_model * m.d_ff_expert
+    if m.d_ff_shared:
+        expert += 2.0 * 3 * cfg.d_model * m.d_ff_shared
     return router + expert
 
 
@@ -71,8 +75,14 @@ def _eff_ctx(T: float, window: float | None, causal: bool = True) -> float:
 
 
 def layer_flops_per_token(cfg: ArchConfig, ctx: float, *,
-                          decode: bool, window: int | None) -> float:
-    """One layer, one token, forward."""
+                          decode: bool, window: int | None,
+                          mixer: str | None = None) -> float:
+    """One layer, one token, forward.  ``mixer``: a ``hybrid_moe`` layer's
+    ("M": the Mamba-2 mixer; "A": attention at ``ctx``), before its MoE."""
+    if cfg.family == "hybrid_moe":
+        f = (_ssm_flops(cfg, decode) if mixer == "M"
+             else _attn_proj_flops(cfg) + _attn_ctx_flops(cfg, ctx))
+        return f + _moe_flops(cfg)
     if cfg.family == "ssm":
         return _ssm_flops(cfg, decode)
     f = _attn_proj_flops(cfg) + _attn_ctx_flops(cfg, ctx)
@@ -83,6 +93,11 @@ def layer_flops_per_token(cfg: ArchConfig, ctx: float, *,
     else:
         f += _mlp_flops(cfg)
     return f
+
+
+def _mixers(cfg: ArchConfig) -> list[str | None]:
+    """Each layer's mixer letter (``hybrid_moe``), else None a layer."""
+    return list(cfg.mixers) if cfg.mixers else [None] * cfg.n_layers
 
 
 def _per_layer_windows(cfg: ArchConfig) -> list[int | None]:
@@ -154,6 +169,9 @@ class Model:
         ``remat_group`` layers under autograd (the audio family's decoder
         layers, the VLM's groups); without autograd it changes nothing."""
         cfg = self.cfg
+        if cfg.family == "hybrid_moe":
+            raise NotImplementedError("training the hybrid_moe family is not "
+                                      "ported: it serves only")
         if cfg.family == "audio":
             out, _ = encdec.forward(cfg, params, batch["frames"],
                                     batch["tokens"], mode="train",
@@ -256,10 +274,10 @@ class Model:
         T = 1 if decode else S
         tokens = B * T
         total = 0.0
-        for w in _per_layer_windows(cfg):
+        for w, m in zip(_per_layer_windows(cfg), _mixers(cfg)):
             ctx = _eff_ctx(S if decode else S, w, causal=True)
             total += tokens * layer_flops_per_token(cfg, ctx, decode=decode,
-                                                    window=w)
+                                                    window=w, mixer=m)
         if cfg.family == "audio":
             enc_tokens = B * (S // 2 if not decode else S // 2)
             enc_layer = (_attn_proj_flops(cfg)
@@ -289,7 +307,10 @@ class Model:
     # -------------------------------------------------- HiDP planner bridge
     def block_costs(self, shape: ShapeConfig) -> ModelDAG:
         """The model as a partitionable block DAG (embed, L layers, head) for
-        the HiDP global/local DP."""
+        the HiDP global/local DP.  A ``hybrid_moe`` model's blocks differ by
+        layer: a Mamba layer is an "ssm" block, which the decode step cannot
+        split by data (its state is recurrent), and an attention layer a
+        "moe" block; each carries its own FLOPs and parameters."""
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         decode = shape.kind == "decode"
@@ -313,15 +334,21 @@ class Model:
         # legal when the per-layer state is a positional cache (attention),
         # illegal for recurrent SSM state.
         decode_splittable = cfg.family not in ("ssm", "hybrid")
-        for i, w in enumerate(windows):
+        for i, (w, m) in enumerate(zip(windows, _mixers(cfg))):
             ctx = _eff_ctx(S, w)
             f = tokens * layer_flops_per_token(cfg, ctx, decode=decode,
-                                               window=w) * mult
+                                               window=w, mixer=m) * mult
+            kind = kinds.get(cfg.family, "attn")
+            splittable, pbytes = decode_splittable, per_layer_params
+            if m is not None:
+                kind = "ssm" if m == "M" else "moe"
+                splittable = m == "A"
+                pbytes = cfg.hybrid_moe_layer_params(m) * 2.0
             blocks.append(Block(
-                name=f"layer{i}", kind=kinds.get(cfg.family, "attn"),
-                flops=f, param_bytes=per_layer_params,
+                name=f"layer{i}", kind=kind,
+                flops=f, param_bytes=pbytes,
                 bytes_in=act_bytes, bytes_out=act_bytes,
-                data_splittable=decode_splittable if decode else True))
+                data_splittable=splittable if decode else True))
         head_tokens = tokens if shape.kind == "train" else B
         blocks.append(Block(
             name="head", kind="dense",

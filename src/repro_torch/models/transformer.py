@@ -1,5 +1,6 @@
 """The decoder-only LM of the dense, SSM, hybrid and MoE families, ported
-from ``repro.models.transformer``.
+from ``repro.models.transformer``, and the port's own ``hybrid_moe`` family
+(granite-4.0-h-small), which the JAX package does not have.
 
 Parameters are stacked along a leading L axis as in the JAX package (so
 ``convert.from_jax`` maps them one to one); a Python loop over layers takes
@@ -8,6 +9,19 @@ the place of ``lax.scan``.  An ``ssm`` layer is a Mamba-2 mixer alone; a
 and averages them; a ``moe`` layer has a routed expert FFN in place of the
 MLP, lowered as ``moe_impl`` says.  Non-uniform attention (gemma3's
 local:global) rides a per-layer window list: global layers get ``kv_len``.
+
+A ``hybrid_moe`` layer is a Mamba-2 mixer or attention, as ``cfg.mixers``
+says, then a routed MoE with a shared expert, each branch scaled by
+``cfg.residual_multiplier`` (μP)::
+
+    h = x + r · mixer(norm(x));   y = h + r · (moe(norm(h)) + shared(norm(h)))
+
+Its parameters are stacked per kind: ``ln1``, ``ln2``, ``moe`` and
+``shared_mlp`` over all L layers, ``attn`` over the attention layers and
+``ssm`` over the Mamba layers, in layer order; its cache likewise holds
+``k``/``v`` for the attention layers alone and ``h``/``conv`` for the Mamba
+layers alone (``mixer_slots`` maps a layer to its slot in its kind's
+stacks).
 
 Training remats groups of layers (``remat``, ``remat_group``) with
 ``torch.utils.checkpoint`` where the reference uses ``jax.checkpoint``.  The
@@ -19,15 +33,17 @@ counterpart here: the carry between groups is simply the bf16 ``x``.
 Given a telemetry recorder (the serving engine passes its own), ``forward``
 spans its parts on it, each wall-clocked on the host: ``model.embed``, then
 per layer ``layer.norm`` (ln1, and ln2 where the layer has one),
-``layer.attention``, ``layer.ssm``, ``layer.moe`` or ``layer.mlp`` with the
-attr ``layer`` (the layer's index; ``layer.moe`` also ``impl``, its
-lowering), then ``model.head``.  They time the host's enqueue; the
-device's time under each is the profiler's, joined by launch time.
+``layer.attention``, ``layer.ssm``, ``layer.moe`` and ``layer.shared_mlp``
+(hybrid_moe) or ``layer.mlp`` with the attr ``layer`` (the layer's index;
+``layer.moe`` also ``impl``, its lowering), then ``model.head``.  They
+time the host's enqueue; the device's time under each is the profiler's,
+joined by launch time.
 Training and the sharded steps pass none.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -77,6 +93,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
 
     emb = embed_params(cfg, gen, device, dtype)
     layers = {"ln1": norm_params(cfg, (nl, d), device)}
+    if cfg.family == "hybrid_moe":
+        return {"embed": emb,
+                "layers": _hybrid_moe_params(cfg, layers, gen, device, dtype),
+                "final_norm": norm_params(cfg, (d,), device)}
     if cfg.family == "ssm":
         layers["ssm"] = _ssm_params(cfg, proj, device, dtype)
     else:
@@ -96,24 +116,89 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
             "final_norm": norm_params(cfg, (d,), device)}
 
 
-def _ssm_params(cfg: ArchConfig, proj, device, dtype) -> dict:
-    """One Mamba-2 mixer per layer, as ``repro.models.layers.ssm_params``:
-    A_log = log(linspace(1, 16, nh)), D = 1, dt_bias = norm = 0, all four in
-    the parameter dtype (they are not norm weights); the rest N(0, 1/fan_in)
-    with the conv's fan_in its width."""
-    s, d, nl = cfg.ssm, cfg.d_model, cfg.n_layers
+def _ssm_params(cfg: ArchConfig, proj, device, dtype,
+                nl: int | None = None) -> dict:
+    """One Mamba-2 mixer per layer (``nl`` of them, every layer's by
+    default), as ``repro.models.layers.ssm_params``: A_log = log(linspace(1,
+    16, nh)), D = 1, dt_bias = norm = 0 (and the conv bias, where the
+    configuration has one), all in the parameter dtype (they are not norm
+    weights); the rest N(0, 1/fan_in) with the conv's fan_in its width."""
+    s, d = cfg.ssm, cfg.d_model
+    nl = cfg.n_layers if nl is None else nl
     di, n, nh = s.d_inner(d), s.d_state, s.n_heads(d)
 
     def const(values):
         return values.to(device=device, dtype=dtype).expand(nl, -1).clone()
 
-    return {"w_in": proj(d, 2 * di + 2 * n + nh),      # z, x, B, C, dt
-            "conv": proj(s.conv_width, di + 2 * n),
-            "A_log": const(torch.log(torch.linspace(1.0, 16.0, nh))),
-            "D": const(torch.ones(nh)),
-            "dt_bias": const(torch.zeros(nh)),
-            "norm": const(torch.zeros(di)),
-            "w_out": proj(di, d)}
+    out = {"w_in": proj(d, 2 * di + 2 * n + nh),       # z, x, B, C, dt
+           "conv": proj(s.conv_width, di + 2 * n),
+           "A_log": const(torch.log(torch.linspace(1.0, 16.0, nh))),
+           "D": const(torch.ones(nh)),
+           "dt_bias": const(torch.zeros(nh)),
+           "norm": const(torch.zeros(di)),
+           "w_out": proj(di, d)}
+    if s.conv_bias:
+        out["conv_b"] = const(torch.zeros(di + 2 * n))
+    return out
+
+
+def _hybrid_moe_params(cfg: ArchConfig, layers: dict, gen, device, dtype
+                       ) -> dict:
+    """The ``hybrid_moe`` stacks: ``layers``' ``ln1``, then ``ln2``, the
+    routed experts and the shared expert over all L layers, ``attn`` over
+    the attention layers and ``ssm`` over the Mamba layers."""
+    d, nl, fs = cfg.d_model, cfg.n_layers, cfg.moe.d_ff_shared
+    n_attn, n_mamba = cfg.n_mixer_layers("A"), cfg.n_mixer_layers("M")
+
+    def proj(*shape):
+        return stacked_normal((n_mamba,), shape, gen, device, dtype)
+
+    layers["ln2"] = norm_params(cfg, (nl, d), device)
+    layers["moe"] = _moe_params(cfg, gen, device, dtype)
+    layers["shared_mlp"] = {
+        "w_gate": stacked_normal((nl,), (d, fs), gen, device, dtype),
+        "w_up": stacked_normal((nl,), (d, fs), gen, device, dtype),
+        "w_down": stacked_normal((nl,), (fs, d), gen, device, dtype)}
+    layers["attn"] = attn_params(cfg, (n_attn,), gen, device, dtype)
+    layers["ssm"] = _ssm_params(cfg, proj, device, dtype, n_mamba)
+    return layers
+
+
+@functools.cache
+def mixer_slots(cfg: ArchConfig) -> tuple[tuple[str, int], ...]:
+    """``hybrid_moe``: each layer's mixer ("M" or "A") and its index into
+    that kind's stacks (the count of earlier layers of the same kind)."""
+    seen = {m: 0 for m in cfg.mixers}
+    out = []
+    for m in cfg.mixers:
+        out.append((m, seen[m]))
+        seen[m] += 1
+    return tuple(out)
+
+
+def layer_params(cfg: ArchConfig, stacked: dict) -> list[dict]:
+    """Every layer's parameters, views into the stacked tree (``unstack``);
+    a ``hybrid_moe`` layer gets its own kind's mixer stack entry, ``attn``
+    or ``ssm``, beside the leaves every layer has."""
+    if cfg.mixers is None:
+        return unstack(stacked)
+    kinds = {"A": "attn", "M": "ssm"}
+    per_kind = {m: unstack(stacked[kinds[m]]) for m in set(cfg.mixers)}
+    common = unstack({k: v for k, v in stacked.items()
+                      if k not in kinds.values()})
+    return [{**common[i], kinds[m]: per_kind[m][j]}
+            for i, (m, j) in enumerate(mixer_slots(cfg))]
+
+
+def layer_cache(cfg: ArchConfig, cache: dict, i: int) -> dict:
+    """Layer ``i``'s views of the stacked decode cache: every leaf's i-th
+    entry, or for a ``hybrid_moe`` layer its kind's (``k``/``v`` or
+    ``h``/``conv``) at its slot."""
+    if cfg.mixers is None:
+        return {k: v[i] for k, v in cache.items()}
+    m, j = mixer_slots(cfg)[i]
+    return {k: cache[k][j] for k in (("k", "v") if m == "A"
+                                     else ("h", "conv"))}
 
 
 def stacked_normal(lead: tuple, shape: tuple, gen: torch.Generator, device,
@@ -244,19 +329,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
     """Stacked (leading L) decode cache: k/v (L, B, S, Hkv, hd) in bf16
     unless the family is ``ssm``; for ``ssm`` and ``hybrid`` the SSM state h
     (L, B, nh, hd, n) in fp32 and the conv context (L, B, cw-1, di+2n) in
-    bf16."""
-    nl = cfg.n_layers
+    bf16.  ``hybrid_moe`` stacks k/v over its attention layers alone and h,
+    conv over its Mamba layers alone."""
+    n_kv = n_ssm = cfg.n_layers
+    if cfg.mixers is not None:
+        n_kv, n_ssm = cfg.n_mixer_layers("A"), cfg.n_mixer_layers("M")
     cache = {}
     if cfg.family != "ssm":
-        shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.hd)
         cache["k"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
         cache["v"] = torch.zeros(shape, dtype=CACHE_DTYPE, device=device)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "hybrid_moe"):
         s = cfg.ssm
         di, n, nh = s.d_inner(cfg.d_model), s.d_state, s.n_heads(cfg.d_model)
-        cache["h"] = torch.zeros((nl, batch, nh, s.head_dim, n),
+        cache["h"] = torch.zeros((n_ssm, batch, nh, s.head_dim, n),
                                  dtype=torch.float32, device=device)
-        cache["conv"] = torch.zeros((nl, batch, s.conv_width - 1,
+        cache["conv"] = torch.zeros((n_ssm, batch, s.conv_width - 1,
                                      di + 2 * n), dtype=CACHE_DTYPE,
                                     device=device)
     return cache
@@ -287,31 +375,44 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
 
     with span("layer.norm"):
         h = L.apply_norm(cfg, p["ln1"], x)
-    if cfg.family == "ssm":
-        with span("layer.ssm"):
-            y, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
-                                  cache=views("h", "conv"))
-        return x + y, sc
-    with span("layer.attention"):
-        a, new_cache = L.attention(cfg, p["attn"], h, positions=positions,
-                                   mode=mode, causal=True, window=window,
-                                   cache=views("k", "v"), lengths=lengths)
-    if cfg.family == "hybrid":
+    a = new_cache = None
+    if "attn" in p:
+        with span("layer.attention"):
+            a, new_cache = L.attention(
+                cfg, p["attn"], h, positions=positions, mode=mode,
+                causal=True, window=window, cache=views("k", "v"),
+                lengths=lengths)
+    if "ssm" in p:
         with span("layer.ssm"):
             s, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
                                   cache=views("h", "conv"))
-        new_cache = {**new_cache, **sc}
-        a = (a + s) * 0.5                   # parallel heads, mean-fused
-    x = x + a
+        if cfg.family == "ssm":
+            return x + s, sc
+        if a is None:                       # a hybrid_moe Mamba layer
+            a, new_cache = s, sc
+        else:
+            new_cache = {**new_cache, **sc}
+            a = (a + s) * 0.5               # parallel heads, mean-fused
+    x = x + _residual(cfg, a)
     with span("layer.norm"):
         h2 = L.apply_norm(cfg, p["ln2"], x)
-    if cfg.family == "moe":
+    if "moe" in p:
         with span("layer.moe", impl=moe_impl):
             y = L.moe_apply(cfg, p["moe"], h2, impl=moe_impl)
+        if "shared_mlp" in p:
+            with span("layer.shared_mlp"):
+                y = y + L.mlp(cfg, p["shared_mlp"], h2, cfg.moe.d_ff_shared)
     else:
         with span("layer.mlp"):
             y = L.mlp(cfg, p["mlp"], h2)
-    return x + y, new_cache
+    return x + _residual(cfg, y), new_cache
+
+
+def _residual(cfg: ArchConfig, y: torch.Tensor) -> torch.Tensor:
+    """A branch as added to the residual stream: scaled by
+    ``cfg.residual_multiplier`` (μP) where it is not 1."""
+    r = cfg.residual_multiplier
+    return y if r == 1.0 else y * r
 
 
 # --------------------------------------------------------------------------
@@ -340,8 +441,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     """
     b, t = tokens.shape
     with _span(telemetry, "model.embed"):
-        x = shard_ctx.constrain_act(
-            L.embed(params["embed"], tokens, cfg.vocab).to(L.COMPUTE_DTYPE))
+        x = L.embed(params["embed"], tokens, cfg.vocab).to(L.COMPUTE_DTYPE)
+        if cfg.embedding_multiplier != 1.0:
+            x = x * cfg.embedding_multiplier
+        x = shard_ctx.constrain_act(x)
     if mode == "decode":
         if cache is None or lengths is None:
             raise ValueError("decode mode needs cache and lengths")
@@ -355,7 +458,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                      + shard_ctx.seq_offset(t))[None].expand(b, t)
         kv_len = t * shard_ctx.seq_rank_size()[1]
     wsched = window_schedule(cfg, kv_len)
-    layers = unstack(params["layers"])
+    layers = layer_params(cfg, params["layers"])
 
     def layer(i, x, lc=None):
         # a window of -1 means "no window"
@@ -374,8 +477,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x = run_remat(groups, lambda i, x: layer(i, x)[0], x)
     else:
         for i in range(cfg.n_layers):
-            lc = (None if cache is None
-                  else {k: v[i] for k, v in cache.items()})
+            lc = None if cache is None else layer_cache(cfg, cache, i)
             x, lcache = layer(i, x, lc)
             if mode == "prefill":
                 for k, v in lcache.items():

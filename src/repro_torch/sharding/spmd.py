@@ -226,6 +226,15 @@ def local_params(params: dict, gather: _Gather) -> dict:
             for k, v in params.items()}
 
 
+def require_sharded_family(cfg) -> None:
+    """The sharded steps compute every family but ``hybrid_moe``, whose
+    per-kind stacks and caches have no sharding specs."""
+    if cfg.family == "hybrid_moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid_moe family has no sharded step; it "
+            "serves on one device through Model.apply_prefill/apply_decode")
+
+
 def make_sharded_grad_fn(model, plan: ShardingPlan, mesh) -> Callable:
     """Returns grads(params, batch) -> (loss, gradients): ``params``
     DTensors (``specs.param_shardings``), ``batch`` the global batch, which
@@ -234,6 +243,7 @@ def make_sharded_grad_fn(model, plan: ShardingPlan, mesh) -> Callable:
     in their parameters' placements.  The microbatch count, remat,
     ``remat_group`` and ``moe_impl`` come from the plan, as in
     ``train_loop.make_train_step``."""
+    require_sharded_family(model.cfg)
     require_ported_layout(plan, "train")
     cfg = model.cfg
     n_micro = max(plan.microbatches, 1)
@@ -467,6 +477,7 @@ def make_sharded_prefill(model, plan: ShardingPlan, mesh) -> Callable:
     logits (B, 1, V) come back as a DTensor under ``specs.logits_pspec``,
     the prompt's cache as DTensors under ``specs.cache_specs_tree`` of its
     shapes (the reference's ``out_shardings``)."""
+    require_sharded_family(model.cfg)
     require_ported_layout(plan, "prefill")
     cfg = model.cfg
     setup = _ServingSetup(model, plan, mesh)
@@ -492,6 +503,7 @@ def make_sharded_decode(model, plan: ShardingPlan, mesh) -> Callable:
     1) and ``lengths`` (B,)); ``cache`` DTensors under ``specs.
     cache_shardings``, written in place (the reference donates it) and
     returned; the logits (B, 1, V) a DTensor under ``specs.logits_pspec``."""
+    require_sharded_family(model.cfg)
     require_ported_layout(plan, "decode")
     cfg = model.cfg
     setup = _ServingSetup(model, plan, mesh)

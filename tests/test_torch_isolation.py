@@ -336,12 +336,37 @@ def test_cross_families_refuse_cuda_without_a_gpu(aid):
         model.init_cache(1, 8)
 
 
+# the fields only the port's dataclasses have (its ``hybrid_moe`` family's),
+# each at the value under which a configuration computes as the JAX
+# package's does
+PORT_ONLY_NEUTRAL = {
+    "mixers": None, "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+    "logits_scaling": 1.0, "attn_scale": None, "rope": True,
+    "d_ff_shared": 0, "conv_bias": False, "norm_eps": 1e-6}
+
+
+def _same_config(ours, theirs) -> None:
+    """Every field of the JAX dataclass ``theirs`` equal in ``ours``,
+    nested specs compared the same way; the fields only the port has at
+    their neutral values."""
+    if not dataclasses.is_dataclass(theirs):
+        assert ours == theirs
+        return
+    assert type(ours).__name__ == type(theirs).__name__
+    jax_fields = {f.name for f in dataclasses.fields(theirs)}
+    for f in dataclasses.fields(ours):
+        if f.name in jax_fields:
+            _same_config(getattr(ours, f.name), getattr(theirs, f.name))
+        else:
+            assert f.name in PORT_ONLY_NEUTRAL, f.name
+            assert getattr(ours, f.name) == PORT_ONLY_NEUTRAL[f.name], f.name
+    assert jax_fields <= {f.name for f in dataclasses.fields(ours)}
+
+
 @pytest.mark.parametrize("aid", ARCH_IDS)
 def test_config_copies_equal_their_counterparts(aid):
-    assert dataclasses.asdict(get_config(aid)) == \
-        dataclasses.asdict(jget_config(aid))
-    assert dataclasses.asdict(get_config(aid).reduced()) == \
-        dataclasses.asdict(jget_config(aid).reduced())
+    _same_config(get_config(aid), jget_config(aid))
+    _same_config(get_config(aid).reduced(), jget_config(aid).reduced())
 
 
 def test_dag_fingerprint_equals_the_jax_digest():
