@@ -7,9 +7,9 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit.  Imports nothing of jax and nothing of the JAX package.  Phases,
 each of which exits non-zero when it fails:
 
-1. the card (``nvidia-smi`` name and power limit); the five kernels
+1. the card (``nvidia-smi`` name and power limit); the six kernels
    (flash attention, its backward, decode attention, the SSD pass and its
-   backward) are built from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   backward, the SSD decode step) are built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, in parallel), and ptxas's registers and spill bytes are logged per
    instantiation (a tensor-core instantiation that spills fails: bf16
    attention forward and backward, the TF32 SSD pass and its backward);
@@ -37,7 +37,10 @@ each of which exits non-zero when it fails:
    too, and the whole scan's gradients through it against autograd of
    ``ref.ssd_chunked``, with and without an incoming state; then each
    backward launch's device time by kernel name at the two training
-   shapes of each backward kernel (``torch.profiler``), and decode's two
+   shapes of each backward kernel (``torch.profiler``); the SSD decode
+   kernel against ``ref.ssd_decode_step`` at ``SSD_DECODE`` (granite-4.0-
+   h-small's 256 rows, mamba2-780m's and hymba-1.5b's heads), x, B and C
+   views into one conv output, the state stepped in place; and decode's two
    launches (split, combine) by name at gemma-2b's serving decode shape
    and at one share of ``decode_32k`` beside the whole call's time, the
    merge's at 2, 4 and 8 ranks beside its bound, and an empty launch's;
@@ -92,10 +95,11 @@ each of which exits non-zero when it fails:
      saturation sweep priced at the counted run's measured seconds a
      request; then prefill-then-decode logits against the full forward
      and a profiler window over decode steps (device-busy share);
-   - mamba2-780m, all 48 layers, 8 requests: the SSD kernel and no
-     attention kernel, then prefill-then-decode against the full forward
-     and profiler windows over decode steps and over one prefill;
-   - hymba-1.5b, all 32 layers, 4 requests: all three kernels, and the
+   - mamba2-780m, all 48 layers, 8 requests: the SSD kernels (the
+     intra-chunk pass and the decode step) and no attention kernel, then
+     prefill-then-decode against the full forward and profiler windows over
+     decode steps and over one prefill;
+   - hymba-1.5b, all 32 layers, 4 requests: all four kernels, and the
      two profiler windows;
    - whisper-tiny, whole (4 encoder and 4 decoder layers), and
      llama-3.2-vision-11b at full width and depth (40 layers: 8 groups of
@@ -126,7 +130,9 @@ each of which exits non-zero when it fails:
    441 x 220, decode over 1601 and 512 rows; the flash backward at
    gemma-2b's training shape beside SDPA's backward; the SSD backward at
    mamba2-780m's and hymba-1.5b's training shapes beside its plain
-   version (no library call computes it);
+   version (no library call computes it); the SSD decode step at every
+   ``SSD_DECODE`` shape beside its bound (bytes) and the plain step with
+   its copy of the new state into the cache;
 6. (run before the times) the training slice: the flash backward kernel
    against ``ref.attention_bwd_naive`` (with the forward's LSE against
    ``ref.attention_lse_naive``) on the reference's shape list in fp32 and
@@ -236,7 +242,7 @@ each of which exits non-zero when it fails:
    traced in four host processes at the lowest priority from right after
    the build (about 1250 s of host time in all).
 
-The last two lines are the ``{"kernels": [...]}`` record (five kernels,
+The last two lines are the ``{"kernels": [...]}`` record (six kernels,
 and the merge's entry point) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -269,7 +275,8 @@ from repro_torch.core import (ANALYTIC, EDGE_MODELS,  # noqa: E402
                               node_as_resource, paper_cluster, plan_to_dict,
                               processors_as_resources, simulate)
 from repro_torch.fleet import ChurnTrace, FleetController  # noqa: E402
-from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
+from repro_torch.kernels import _build, ops, ref, ssd_decode  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -359,6 +366,16 @@ DECODE_LENS = [([544, 400, 256, 96], None), ([1024, 700, 33, 1], None),
 # d_state 128) and hymba-1.5b (50 heads, d_state 16)
 SSD_PREFILL = [(1, 512, 48, 64, 128, 128), (1, 39, 48, 64, 128, 128),
                (1, 512, 50, 64, 16, 128), (1, 39, 50, 64, 16, 128)]
+# the SSD decode step at the serving widths, (b, nh, hd, n): granite-4.0-h-
+# small's 256 rows of 128 heads (the benchmark cell's decode; timed first
+# and recorded in the kernels line), mamba2-780m's 48 heads and hymba-1.5b's
+# d_state 16 at 64 rows
+SSD_DECODE = [(256, 128, 64, 128), (64, 48, 64, 128), (64, 50, 64, 16)]
+# its tolerances (tests/test_torch_ssd_decode_chip.py): the state rounded
+# as the plain version rounds it (room for one ulp of exp(dt A)), y's sum
+# in another order (one bf16 ulp, 2^-8 relative)
+SSD_DECODE_RTOL = {"state": 1e-6, torch.float32: 1e-5,
+                   torch.bfloat16: 2 ** -7}
 # the SSM and hybrid training cells, B x T per step.  hymba-1.5b trains on
 # 2048 tokens so that its window of 1024 masks keys in the flash forward
 # and backward (at T=1024 it never would)
@@ -392,11 +409,13 @@ CHURN_AT = ((8, 1.5), (24, 2.5))
 # published dense peaks of one H100 SXM (NVIDIA data sheet): bf16 and TF32
 # tensor cores, memory
 PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 989e12, 495e12, 3.35e12
+# fp32 outside the tensor cores (the same data sheet)
+PEAK_FP32_FLOPS = 67e12
 # each kernel's wrapper module, whose ``launches`` counts its calls that
 # launched the kernel (a decode-attention call is two launches: split and
 # combine)
 COUNTERS = {"flash_attention": fa, "decode_attention": da,
-            "ssd_intra_chunk": ssd_scan}
+            "ssd_intra_chunk": ssd_scan, "ssd_decode": ssd_decode}
 # the kernel kind each counter's calls are swept under by
 # ``Profiler.profile_kernels``
 SWEEP_KINDS = {"attn": "flash_attention", "decode": "decode_attention",
@@ -588,6 +607,52 @@ def check_ssd_backward() -> float:
     if ssd_scan.bwd_launches == before[1] or ssd_scan.launches == before[0]:
         raise AssertionError("the SSD gradient checks launched no kernel")
     torch.cuda.synchronize()
+    return worst
+
+
+def ssd_decode_case(shape, dtype, seed):
+    """(h, x, dt, A, B, C, D) for one decode step, drawn like
+    ``ssd_case``; x, B and C views into one (b, 1, nh*hd + 2n) tensor of
+    ``dtype``, as the mixer passes them from its conv output."""
+    b, nh, hd, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+    conv_out = torch.cat([rn(b, 1, nh * hd) * 0.5, rn(b, 1, 2 * n) * 0.3],
+                         -1).to(dtype)
+    xs, B, C = torch.split(conv_out, [nh * hd, n, n], -1)
+    dt = torch.nn.functional.softplus(rn(b, 1, nh))[:, 0] * 0.1
+    return (rn(b, nh, hd, n) * 0.1, xs.reshape(b, 1, nh, hd)[:, 0], dt,
+            -torch.exp(rn(nh)), B[:, 0], C[:, 0],
+            torch.full((nh,), 0.1, device="cuda"))
+
+
+def check_ssd_decode() -> float:
+    """The SSD decode kernel against ``ref.ssd_decode_step`` at every
+    ``SSD_DECODE`` shape, x in bf16 and fp32: the state stepped in place
+    (the same storage) and y, at ``SSD_DECODE_RTOL``, one launch a call;
+    returns the state's largest error."""
+    before, worst = ssd_decode.launches, 0.0
+    for i, shape in enumerate(SSD_DECODE):
+        for dtype in (torch.bfloat16, torch.float32):
+            h, *rest = ssd_decode_case(shape, dtype, 1900 + i)
+            want_y, want_h = ref.ssd_decode_step(h, *rest)
+            ptr = h.data_ptr()
+            y = ssd_decode.ssd_decode_step_(h, *rest)
+            if h.data_ptr() != ptr or y.dtype != dtype:
+                raise AssertionError(f"ssd_decode {shape}: not in place")
+            err = _check(f"ssd_decode {shape} {dtype} state", h, want_h,
+                         1e-7, SSD_DECODE_RTOL["state"])
+            y_err = _check(f"ssd_decode {shape} {dtype} y", y, want_y, 1e-5,
+                           SSD_DECODE_RTOL[dtype])
+            log(f"  ssd decode {shape} x {dtype}: state max|err| {err:.3e}, "
+                f"y max|err| {y_err:.3e}")
+            worst = max(worst, err)
+    if ssd_decode.launches != before + 2 * len(SSD_DECODE):
+        raise AssertionError(f"ssd_decode launched "
+                             f"{ssd_decode.launches - before} times, not "
+                             f"{2 * len(SSD_DECODE)}")
     return worst
 
 
@@ -1234,6 +1299,39 @@ def time_ssd_bwd(shape) -> dict:
             *ops_, dy, dstates, nh=nh, hd=hd), None),
         library_ms=None, bound_ms=bound, bound_by=by, flops=flops,
         bytes=nbytes)
+
+
+def time_ssd_decode(shape) -> dict:
+    """The SSD decode step at a serving shape, x, B and C in bf16.  Its
+    least work is bytes: the fp32 state read once and written once, x, B,
+    C, dt, A and D read, y written; its operations (two products, a sum and
+    the readout's multiply-add per state element, fp32 on the CUDA cores)
+    are under 4% of that.  The plain version is the step the mixer ran
+    before the kernel: ``ref.ssd_decode_step`` and the new state's copy
+    into the cache."""
+    b, nh, hd, n = shape
+    h, x, dt, A, B, C, D = ssd_decode_case(shape, torch.bfloat16, 1950)
+    state = h.numel()
+    nbytes = float(2 * 4 * state + 2 * (2 * x.numel() + 2 * b * n)
+                   + 4 * (dt.numel() + 2 * nh))
+    bound, by = _bound(5.0 * state, nbytes, PEAK_FP32_FLOPS)
+
+    def plain():
+        _, h_new = ref.ssd_decode_step(h, x, dt, A, B, C, D)
+        h.copy_(h_new)
+    return dict(
+        ms=time_ms(lambda: ssd_decode.ssd_decode_step_(h, x, dt, A, B, C, D),
+                   None),
+        plain_ms=time_ms(plain, None), library_ms=None, bound_ms=bound,
+        bound_by=by, bytes=nbytes)
+
+
+def ssd_decode_line(shape, r: dict, smi: str) -> str:
+    return (f"time ssd decode {shape}: kernel {r['ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of its bound), plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}: "
+            f"{r['bytes'] / 1e9:.4f} GB) [{smi}]")
 
 
 def calibrate_and_plan(smi: str) -> dict:
@@ -2101,7 +2199,8 @@ def serve_cross_families(smi: str) -> dict:
         steps = len(run["eng"].decode_seconds)
         per_prompt, per_step = cross_launches(cfg)
         want = {"flash_attention": N_REQUESTS * per_prompt,
-                "decode_attention": steps * per_step, "ssd_intra_chunk": 0}
+                "decode_attention": steps * per_step, "ssd_intra_chunk": 0,
+                "ssd_decode": 0}
         if run["launches"] != want:
             raise AssertionError(f"{aid} launches {run['launches']}, "
                                  f"expected {want}")
@@ -2143,7 +2242,8 @@ def serve_qwen3(smi: str) -> None:
         QWEN3, N_REQUESTS, ("flash_attention", "decode_attention"), smi)
     steps = len(run["eng"].decode_seconds)
     want = {"flash_attention": N_REQUESTS * cfg.n_layers,
-            "decode_attention": steps * cfg.n_layers, "ssd_intra_chunk": 0}
+            "decode_attention": steps * cfg.n_layers, "ssd_intra_chunk": 0,
+            "ssd_decode": 0}
     if run["launches"] != want:
         raise AssertionError(f"{QWEN3} launches {run['launches']}, expected "
                              f"{want}")
@@ -4652,6 +4752,9 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     worst = check_kernels()
     worst["flash_attention_bwd"] = check_backward()
     worst["ssd_intra_chunk_bwd"] = check_ssd_backward()
+    worst["ssd_decode"] = check_ssd_decode()
+    log(f"ssd decode vs plain: {2 * len(SSD_DECODE)} cases, state largest "
+        f"max|err| {worst['ssd_decode']:.3e}")
     bwd_launch_times(smi)
     decode_launch_times(smi)
     moe_err = check_moe()
@@ -4679,7 +4782,7 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     torch.cuda.empty_cache()
 
     cfg, model, params, prompts, run = serve(
-        "mamba2-780m", N_REQUESTS, ("ssd_intra_chunk",), smi)
+        "mamba2-780m", N_REQUESTS, ("ssd_intra_chunk", "ssd_decode"), smi)
     err = check_prefill_then_decode(model, params, cfg, PTD_LIMIT[cfg.name])
     log(f"mamba2-780m prefill-then-decode vs full forward (B=2, P=255: a "
         f"full chunk and a padded one): max|err| {err:.3e} within "
@@ -4688,7 +4791,8 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
         f"{decode_breakdown(model, params, prompts)} [{smi}]")
     log(f"mamba2-780m prefill: "
         f"{prefill_breakdown(model, params, prompts[0])} [{smi}]")
-    launches["ssd_intra_chunk"] = run["launches"]["ssd_intra_chunk"]
+    for kname in ("ssd_intra_chunk", "ssd_decode"):
+        launches[kname] = run["launches"][kname]
     del params, model, run
     torch.cuda.empty_cache()
 
@@ -4777,6 +4881,10 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
             f"{r['flops'] / 1e9:.3f} GFLOP fp32 as 3xTF32, "
             f"{r['bytes'] / 1e6:.2f} MB) [{smi}]")
         records.setdefault("ssd_intra_chunk", r)
+    for shape in SSD_DECODE:
+        r = time_ssd_decode(shape)
+        log(ssd_decode_line(shape, r, smi))
+        records.setdefault("ssd_decode", r)
     r = time_flash_bwd(None)          # its inputs just produced: warm
     log(_time_line(f"flash backward gemma-2b training B={TRAIN_B} "
                    f"T={TRAIN_T} (library: sdpa's backward)", r, smi))
@@ -4812,9 +4920,12 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
             "src/repro/kernels/flash_attention.py:134"),
         "ssd_intra_chunk_bwd": (
             "src/repro_torch/kernels/csrc/ssd_intra_chunk_bwd.cu",
-            "src/repro/kernels/ssd_scan.py:69")}
+            "src/repro/kernels/ssd_scan.py:69"),
+        "ssd_decode": ("src/repro_torch/kernels/csrc/ssd_decode.cu",
+                       "none: src/repro/kernels/ops.py::ssd_decode_step "
+                       "runs outside Pallas")}
     # launches: the attention kernels' from the gemma-2b run, the SSD
-    # kernel's from the mamba2-780m run (hymba-1.5b's are logged above),
+    # kernels' (intra-chunk and decode) from the mamba2-780m run (hymba-1.5b's are logged above),
     # the flash backward's from gemma-2b's full-depth train steps, the SSD
     # backward's from mamba2-780m's
     worst["decode_attention"] = max(worst["decode_attention"],

@@ -4,10 +4,10 @@ The tensor's device picks the path:
 
   * a CUDA tensor goes through the hand-written CUDA kernel
     (``flash_attention`` / ``decode_attention`` / the intra-chunk pass of
-    ``ssd``), or the call raises.  Under grad, flash attention runs as
-    ``FlashAttentionFn`` (its forward kernel with the LSE output, and its
-    backward kernel when the graph is differentiated) and the SSD
-    intra-chunk pass as ``SSDIntraChunkFn`` (its forward and backward
+    ``ssd`` / ``ssd_decode_step_``), or the call raises.  Under grad, flash
+    attention runs as ``FlashAttentionFn`` (its forward kernel with the LSE
+    output, and its backward kernel when the graph is differentiated) and
+    the SSD intra-chunk pass as ``SSDIntraChunkFn`` (its forward and backward
     kernels; the rest of the scan is PyTorch under autograd);
   * a CPU tensor goes through the plain version in ``ref``:
     ``set_backend("blocked")`` (the default, as in the JAX package) or
@@ -32,7 +32,7 @@ from typing import Literal
 
 from . import decode_attention as da
 from . import flash_attention as fa
-from . import ref, ssd_scan
+from . import ref, ssd_decode, ssd_scan
 
 Backend = Literal["blocked", "naive"]
 _BACKENDS = ("blocked", "naive")
@@ -136,8 +136,28 @@ def ssd(x, dt, A, B, C, D, *, chunk=128, h0=None):
 
 
 def ssd_decode_step(h, x, dt, A, B, C, D):
-    """One-token SSM update in plain PyTorch on either device.  No TPU
-    kernel computes it: the JAX package runs it outside Pallas too
-    (``repro/kernels/ops.py::ssd_decode_step``), so this mirrors it and is
-    not a fallback."""
+    """One-token SSM update in plain PyTorch on either device, returning
+    (y, h_new): the JAX package's ``repro/kernels/ops.py::ssd_decode_step``,
+    which runs it outside Pallas too.  The models step their cache with
+    ``ssd_decode_step_``."""
     return ref.ssd_decode_step(h, x, dt, A, B, C, D)
+
+
+def ssd_decode_impl(h) -> str:
+    """Which path ``ssd_decode_step_`` takes for the state ``h``: "kernel"
+    (``csrc/ssd_decode.cu``) for a CUDA tensor, "plain" for a CPU or
+    abstract one."""
+    return "plain" if _abstract(h) or not _on_cuda(h) else "kernel"
+
+
+def ssd_decode_step_(h, x, dt, A, B, C, D):
+    """One-token SSM update that writes the new state into ``h`` in place
+    and returns y (b, nh, hd) in x's dtype.  A CUDA state goes through the
+    CUDA kernel (``ssd_decode.ssd_decode_step_``: the state read once and
+    written once); a CPU or abstract one through ``ref.ssd_decode_step``
+    and a copy into ``h``."""
+    if ssd_decode_impl(h) == "kernel":
+        return ssd_decode.ssd_decode_step_(h, x, dt, A, B, C, D)
+    y, h_new = ref.ssd_decode_step(h, x, dt, A, B, C, D)
+    h.copy_(h_new)
+    return y

@@ -519,10 +519,8 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     if mode == "decode":
         if cache is None:
             raise ValueError("decode mode needs the SSM cache")
-        y, h_new = ops.ssd_decode_step(cache["h"], xh[:, 0], dt[:, 0], A,
-                                       B[:, 0], C[:, 0], D)
-        y = y[:, None]                                      # (B,1,nh,hd)
-        cache["h"].copy_(h_new)
+        y = ops.ssd_decode_step_(cache["h"], xh[:, 0], dt[:, 0], A,
+                                 B[:, 0], C[:, 0], D)[:, None]  # (B,1,nh,hd)
         cache["conv"].copy_(new_conv)
         new_cache = cache
     else:

@@ -35,7 +35,8 @@ spans its parts on it, each wall-clocked on the host: ``model.embed``, then
 per layer ``layer.norm`` (ln1, and ln2 where the layer has one),
 ``layer.attention``, ``layer.ssm``, ``layer.moe`` and ``layer.shared_mlp``
 (hybrid_moe) or ``layer.mlp`` with the attr ``layer`` (the layer's index;
-``layer.moe`` also ``impl``, its lowering), then ``model.head``.  They
+``layer.moe`` also ``impl``, its lowering, and a decode ``layer.ssm`` the
+path of its state update, ``ops.ssd_decode_impl``), then ``model.head``.  They
 time the host's enqueue; the device's time under each is the profiler's,
 joined by launch time.
 Training and the sharded steps pass none.
@@ -49,6 +50,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.telemetry import wall_span as _span
 from . import layers as L
@@ -383,7 +385,8 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
                 causal=True, window=window, cache=views("k", "v"),
                 lengths=lengths)
     if "ssm" in p:
-        with span("layer.ssm"):
+        kw = {"impl": ops.ssd_decode_impl(h)} if mode == "decode" else {}
+        with span("layer.ssm", **kw):
             s, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
                                   cache=views("h", "conv"))
         if cfg.family == "ssm":

@@ -1,7 +1,9 @@
 """The port's SSD functions against the JAX package on the CPU: the plain
 versions (``ssd_naive``, ``ssd_chunked``, ``ssd_decode_step``,
 ``ssd_intra_chunk``), the ``ssd_scan.ssd`` wrapper's own PyTorch code run
-with the plain intra-chunk pass, and the ``ops`` dispatch.
+with the plain intra-chunk pass, the ``ops`` dispatch, the in-place decode
+step (``ops.ssd_decode_step_``, ``mamba_block``'s decode) and the argument
+checks of the CUDA kernels' wrappers.
 
 Inputs follow test_kernels.py's ``_mk_ssd`` distributions, drawn with numpy
 and handed to both packages.  Tolerances are test_kernels.py's: atol 1e-4,
@@ -17,7 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import ssd_scan as jssd  # noqa: E402
-from repro_torch.kernels import ops, ref, ssd_scan  # noqa: E402
+from repro_torch.kernels import ops, ref, ssd_decode, ssd_scan  # noqa: E402
 from test_kernels import SSD_SHAPES  # noqa: E402
 
 ATOL, DECODE_ATOL = 1e-4, 1e-5
@@ -197,3 +199,93 @@ def test_ssd_intra_chunk_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_scan.ssd(x, dt, A, B, C, D, chunk=8)
     assert ssd_scan.launches == 0
+
+
+def _decode_views(seed, b, nh, hd, n, dtype):
+    """(x, dt, A, B, C, D) for one decode step, x, B and C views into one
+    (b, 1, nh*hd + 2n) tensor as ``mamba_block`` passes them from its conv
+    output."""
+    (x, dt, A, B, C, D), _ = _inputs(seed, b, 1, nh, hd, n)
+    conv_out = torch.cat([x.reshape(b, 1, nh * hd), B, C], -1).to(dtype)
+    xs, Bv, Cv = torch.split(conv_out, [nh * hd, n, n], -1)
+    return (xs.reshape(b, 1, nh, hd)[:, 0], dt[:, 0], A, Bv[:, 0], Cv[:, 0],
+            D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd, n", [(8, 16), (64, 16), (64, 128)])
+def test_ssd_decode_step_updates_the_state_in_place(hd, n, dtype):
+    """``ops.ssd_decode_step_`` on CPU writes ``ref.ssd_decode_step``'s new
+    state into the same storage and returns its y, from strided views."""
+    b, nh = 3, 4
+    x, dt, A, B, C, D = _decode_views(14, b, nh, hd, n, dtype)
+    assert not x.is_contiguous() and B.stride(0) == nh * hd + 2 * n
+    h, _ = _h0(15, b, nh, hd, n)
+    want_y, want_h = ref.ssd_decode_step(h.clone(), x, dt, A, B, C, D)
+    ptr = h.data_ptr()
+    y = ops.ssd_decode_step_(h, x, dt, A, B, C, D)
+    assert h.data_ptr() == ptr and h.dtype == torch.float32
+    assert y.dtype == dtype and y.shape == (b, nh, hd)
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    assert ops.ssd_decode_impl(h) == "plain"
+    assert ssd_decode.launches == 0            # CPU tensors never launch
+
+
+@pytest.mark.parametrize("aid", ["mamba2-780m", "hymba-1.5b"])
+def test_mamba_block_decode_matches_jax_in_place(aid):
+    """One decode step of a reduced mixer: output and new state as the JAX
+    package's ``mamba_block`` gives them from the same weights and cache,
+    the state written into the cache's own tensor."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models import build_model as jbuild_model
+    from repro.models import layers as jlayers
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models.convert import from_jax
+    from test_torch_model import _close
+
+    jcfg = jget_config(aid).reduced()
+    jp = jax.tree.map(lambda a: a[0], jbuild_model(jcfg).init(
+        jax.random.PRNGKey(0))["layers"]["ssm"])
+    p = from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    cfg = get_config(aid).reduced()
+    s = cfg.ssm
+    b, d = 2, cfg.d_model
+    nh, di = s.n_heads(d), s.d_inner(d)
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((b, 1, d)).astype(np.float32)
+    h0 = (rng.standard_normal((b, nh, s.head_dim, s.d_state)) * 0.1
+          ).astype(np.float32)
+    conv = rng.standard_normal((b, s.conv_width - 1, di + 2 * s.d_state)
+                               ).astype(np.float32)
+    want, wc = jlayers.mamba_block(
+        jcfg, jp, jnp.asarray(x, jnp.bfloat16), mode="decode",
+        cache={"h": jnp.asarray(h0), "conv": jnp.asarray(conv, jnp.bfloat16)})
+    cache = {"h": torch.from_numpy(h0.copy()),
+             "conv": torch.from_numpy(conv).bfloat16()}
+    h = cache["h"]
+    got, gc = layers.mamba_block(cfg, p, torch.from_numpy(x).bfloat16(),
+                                 mode="decode", cache=cache)
+    assert gc is cache and gc["h"] is h
+    _close(got, want)
+    _close(h, wc["h"])
+    _close(gc["conv"], wc["conv"])
+
+
+def test_ssd_decode_wrapper_rejects_what_its_kernel_does_not_take():
+    """The decode kernel's wrapper raises on CPU tensors, a state that is
+    not fp32 and a d_state the kernel does not take, before any build."""
+    b, nh, hd = 2, 2, 8
+    for n, dtype, match in ((16, torch.float32, "CUDA tensors"),
+                            (128, torch.float32, "CUDA tensors"),
+                            (16, torch.bfloat16, "float32"),
+                            (18, torch.float32, "d_state"),
+                            (260, torch.float32, "d_state")):
+        x, dt, A, B, C, D = _decode_views(17, b, nh, hd, n, torch.float32)
+        h = torch.zeros((b, nh, hd, n), dtype=dtype)
+        with pytest.raises(ValueError, match=match):
+            ssd_decode.ssd_decode_step_(h, x, dt, A, B, C, D)
+    assert ssd_decode.launches == 0
