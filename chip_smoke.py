@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit.  Imports nothing of jax and nothing of the JAX package.  Phases,
 each of which exits non-zero when it fails:
 
-1. the card (``nvidia-smi`` name and power limit); the six kernels
-   (flash attention, its backward, decode attention, the SSD pass and its
-   backward, the SSD decode step) are built from ``src/repro_torch/kernels/csrc`` (one nvcc per
+1. the card (``nvidia-smi`` name and power limit); the seven kernel
+   libraries (flash attention, its backward, decode attention, the SSD pass
+   and its backward, the SSD decode step, the Mamba-2 prefill passes) are
+   built from ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, in parallel), and ptxas's registers and spill bytes are logged per
    instantiation (a tensor-core instantiation that spills fails: bf16
    attention forward and backward, the TF32 SSD pass and its backward);
@@ -40,7 +41,11 @@ each of which exits non-zero when it fails:
    shapes of each backward kernel (``torch.profiler``); the SSD decode
    kernel against ``ref.ssd_decode_step`` at ``SSD_DECODE`` (granite-4.0-
    h-small's 256 rows, mamba2-780m's and hymba-1.5b's heads), x, B and C
-   views into one conv output, the state stepped in place; and decode's two
+   views into one conv output, the state stepped in place; the Mamba-2
+   prefill passes (``mamba_prefill.mixer``) against their plain
+   composition at ``MAMBA_PREFILL`` (granite-4.0-h-small's 1385 and 4096
+   tokens, mamba2-780m's and hymba-1.5b's 512), from zeros and from a
+   cache; and decode's two
    launches (split, combine) by name at gemma-2b's serving decode shape
    and at one share of ``decode_32k`` beside the whole call's time, the
    merge's at 2, 4 and 8 ranks beside its bound, and an empty launch's;
@@ -132,7 +137,9 @@ each of which exits non-zero when it fails:
    mamba2-780m's and hymba-1.5b's training shapes beside its plain
    version (no library call computes it); the SSD decode step at every
    ``SSD_DECODE`` shape beside its bound (bytes) and the plain step with
-   its copy of the new state into the cache;
+   its copy of the new state into the cache; each Mamba-2 prefill pass at
+   every ``MAMBA_PREFILL`` shape beside its bound, the intra-chunk kernel
+   there, and the six launches beside the eager chain they replaced;
 6. (run before the times) the training slice: the flash backward kernel
    against ``ref.attention_bwd_naive`` (with the forward's LSE against
    ``ref.attention_lse_naive``) on the reference's shape list in fp32 and
@@ -242,8 +249,8 @@ each of which exits non-zero when it fails:
    traced in four host processes at the lowest priority from right after
    the build (about 1250 s of host time in all).
 
-The last two lines are the ``{"kernels": [...]}`` record (six kernels,
-and the merge's entry point) and
+The last two lines are the ``{"kernels": [...]}`` record (seven kernel
+libraries, and the merge's entry point) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -276,6 +283,7 @@ from repro_torch.core import (ANALYTIC, EDGE_MODELS,  # noqa: E402
                               processors_as_resources, simulate)
 from repro_torch.fleet import ChurnTrace, FleetController  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, ssd_decode  # noqa: E402
+from repro_torch.kernels import mamba_prefill  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -376,6 +384,17 @@ SSD_DECODE = [(256, 128, 64, 128), (64, 48, 64, 128), (64, 50, 64, 16)]
 # in another order (one bf16 ulp, 2^-8 relative)
 SSD_DECODE_RTOL = {"state": 1e-6, torch.float32: 1e-5,
                    torch.bfloat16: 2 ** -7}
+# the Mamba-2 mixer's prefill passes at the serving widths, (t, nh, hd, n,
+# chunk, conv bias): granite-4.0-h-small's prompts of 1385 tokens (the
+# benchmark mix's median, recorded in the kernels line) and 4096 (its
+# longest), mamba2-780m's and hymba-1.5b's of 512
+MAMBA_PREFILL = [(1385, 128, 64, 128, 256, True),
+                 (4096, 128, 64, 128, 256, True),
+                 (512, 48, 64, 128, 128, False),
+                 (512, 50, 64, 16, 128, False)]
+# their tolerances (tests/test_torch_mamba_prefill_chip.py): the output
+# within two bf16 ulps (2^-7 relative at least), the final state 1e-5
+MAMBA_PREFILL_RTOL = {"y": 2 ** -6, "state": 1e-5}
 # the SSM and hybrid training cells, B x T per step.  hymba-1.5b trains on
 # 2048 tokens so that its window of 1024 masks keys in the flash forward
 # and backward (at T=1024 it never would)
@@ -415,7 +434,8 @@ PEAK_FP32_FLOPS = 67e12
 # launched the kernel (a decode-attention call is two launches: split and
 # combine)
 COUNTERS = {"flash_attention": fa, "decode_attention": da,
-            "ssd_intra_chunk": ssd_scan, "ssd_decode": ssd_decode}
+            "ssd_intra_chunk": ssd_scan, "ssd_decode": ssd_decode,
+            "mamba_prefill": mamba_prefill}
 # the kernel kind each counter's calls are swept under by
 # ``Profiler.profile_kernels``
 SWEEP_KINDS = {"attn": "flash_attention", "decode": "decode_attention",
@@ -1334,6 +1354,189 @@ def ssd_decode_line(shape, r: dict, smi: str) -> str:
             f"{r['bytes'] / 1e9:.4f} GB) [{smi}]")
 
 
+def mamba_prefill_case(shape, seed, cached):
+    """zxbcdt (1, t, 2di + 2n + nh) and one mixer's weights in bf16, as the
+    engine serves them, drawn like the chip test's; with ``cached`` a conv
+    context and an h0."""
+    t, nh, hd, n, _, bias = shape
+    di = nh * hd
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    zxbcdt = _randn((1, t, 2 * di + 2 * n + nh), bf, gen)
+    p = {"conv": (_randn((4, di + 2 * n), torch.float32, gen) * 0.5).to(bf),
+         "dt_bias": (_randn((nh,), torch.float32, gen) * 0.5).to(bf),
+         "A_log": torch.log(torch.linspace(1.0, 16.0, nh,
+                                           device="cuda")).to(bf),
+         "D": _randn((nh,), bf, gen),
+         "norm": (_randn((di,), torch.float32, gen) * 0.1).to(bf)}
+    if bias:
+        p["conv_b"] = (_randn((di + 2 * n,), torch.float32, gen) * 0.1
+                       ).to(bf)
+    conv = h0 = None
+    if cached:
+        conv = _randn((1, 3, di + 2 * n), bf, gen)
+        h0 = _randn((1, nh, hd, n), torch.float32, gen) * 0.1
+    return zxbcdt, p, conv, h0
+
+
+def _mamba_mixer(shape, zxbcdt, p, conv, h0, passes):
+    _, nh, hd, n, chunk, _ = shape
+    return mamba_prefill.mixer(zxbcdt, p, hd=hd, n=n, chunk=chunk,
+                               eps=1e-5, conv_state=conv, h0=h0,
+                               passes=passes)
+
+
+def check_mamba_prefill() -> float:
+    """``mamba_prefill.mixer`` over the five passes against the same
+    composition over their plain versions, the intra-chunk kernel on both
+    sides, at every ``MAMBA_PREFILL`` shape from zeros and from a cache:
+    the output at ``MAMBA_PREFILL_RTOL``, the final state at 1e-5, the conv
+    context exact, five launches a call; returns the output's largest
+    error."""
+    before, worst = mamba_prefill.launches, 0.0
+    plain = mamba_prefill.PLAIN._replace(intra=ssd_scan.ssd_intra_chunk_fwd)
+    for i, shape in enumerate(MAMBA_PREFILL):
+        for cached in (False, True):
+            case = mamba_prefill_case(shape, 2000 + i, cached)
+            y, h, ctx = _mamba_mixer(shape, *case, mamba_prefill.KERNELS)
+            wy, wh, wctx = _mamba_mixer(shape, *case, plain)
+            err = _check(f"mamba prefill {shape} y", y, wy, 1e-5,
+                         MAMBA_PREFILL_RTOL["y"])
+            h_err = _check(f"mamba prefill {shape} state", h, wh, 1e-6,
+                           MAMBA_PREFILL_RTOL["state"])
+            if not torch.equal(ctx, wctx):
+                raise AssertionError(f"mamba prefill {shape}: conv context")
+            log(f"  mamba prefill {shape} {'cached' if cached else 'fresh'}"
+                f": y max|err| {err:.3e}, state max|err| {h_err:.3e}")
+            worst = max(worst, err)
+    ran = mamba_prefill.launches - before
+    if ran != 5 * 2 * len(MAMBA_PREFILL):
+        raise AssertionError(f"mamba_prefill launched {ran} times, not "
+                             f"{10 * len(MAMBA_PREFILL)}")
+    return worst
+
+
+@contextlib.contextmanager
+def plain_mixer():
+    """Every Mamba layer's prefill on the eager path (the code the passes
+    replaced), for the comparison runs only."""
+    real = L.mamba_prefill_impl
+    L.mamba_prefill_impl = lambda p, x: "plain"
+    try:
+        yield
+    finally:
+        L.mamba_prefill_impl = real
+
+
+def time_mamba_prefill(shape) -> dict:
+    """Each prefill pass's device time at ``shape`` beside its bound, the
+    intra-chunk kernel's, the whole of ``ops.mamba_prefill`` (the six
+    launches), and the eager chain it replaced (``mamba_block`` on the
+    plain path, less its two projections timed alone), by CUDA events
+    behind a sleep kernel and with the host's enqueue.  Bounds: bytes, each
+    input read and each output written once, at 3.35 TB/s; the output
+    pass's C·h_in (2 t nh hd n FLOP) at the fp32 peak of the CUDA cores,
+    where that is larger; the intra-chunk kernel's as ``time_ssd``'s.
+    Returns {name: dict(ms, bound_ms, bound_by, bytes)} and the chains'
+    times."""
+    t, nh, hd, n, chunk, _ = shape
+    di, cc = nh * hd, nh * hd + 2 * n
+    zxbcdt, p, _, _ = mamba_prefill_case(shape, 2100, False)
+    dtr, xbc = zxbcdt[..., 2 * di + 2 * n:], zxbcdt[..., di:2 * di + 2 * n]
+    kp = mamba_prefill
+    dt, dacs = kp.ssd_dt(dtr, p["dt_bias"], p["A_log"], chunk)
+    nc, c = dacs.shape[1:3]
+    tp = nc * c
+    out, _, xdt, B, C = kp.conv(xbc, p["conv"], p.get("conv_b"), None, dt,
+                                hd=hd)
+    C = C.reshape(1, nc, c, n)
+    ops_ = (xdt.reshape(1, nc, c, di), dacs, B.reshape(1, nc, c, n), C)
+    y_diag, states = ssd_scan.ssd_intra_chunk_fwd(*ops_, nh=nh, hd=hd)
+    zeros = torch.zeros_like(states)     # a fixed point of the in-place pass
+    x = out[..., :di].unflatten(-1, (nh, hd))
+    y = kp.output(y_diag, states, dacs, C, x, p["D"])
+    y = y.reshape(1, t, di)
+    z = zxbcdt[..., :di]
+    st = nc * nh * n * hd
+    pairs = sum((min(c, t - lo) * (min(c, t - lo) + 1)) / 2
+                for lo in range(0, t, c))
+    intra_flops = float(2 * n * pairs + 2 * nh * hd * pairs
+                        + 2 * nh * t * n * hd)
+    parts = {
+        "ssd_dt": (lambda: kp.ssd_dt(dtr, p["dt_bias"], p["A_log"], chunk),
+                   2 * t * nh + 8 * tp * nh, 0.0),
+        "mamba_conv": (lambda: kp.conv(xbc, p["conv"], p.get("conv_b"),
+                                       None, dt, hd=hd),
+                       2 * 2 * t * cc + 2 * 4 * cc + 4 * tp * nh
+                       + 4 * tp * (di + 2 * n) + 2 * 3 * cc, 0.0),
+        "ssd_intra_chunk": (lambda: ssd_scan.ssd_intra_chunk_fwd(
+            *ops_, nh=nh, hd=hd),
+            4 * (2 * tp * di + tp * nh + 2 * tp * n + st), 3 * intra_flops),
+        "ssd_states": (lambda: kp.chunk_states(zeros, dacs, None),
+                       2 * 4 * st + 4 * nh * hd * n, 0.0),
+        "ssd_output": (lambda: kp.output(y_diag, states, dacs, C, x,
+                                         p["D"]),
+                       4 * (tp * di + st + tp * n + tp * nh)
+                       + 2 * 2 * t * di, 2.0 * t * nh * hd * n),
+        "gated_rmsnorm": (lambda: kp.gated_norm(y, z, p["norm"], 1e-5),
+                          3 * 2 * t * di, 0.0)}
+    res = {}
+    for name, (fn, nbytes, flops) in parts.items():
+        peak = PEAK_TF32_FLOPS if name == "ssd_intra_chunk" else \
+            PEAK_FP32_FLOPS
+        bound, by = _bound(flops, float(nbytes), peak)
+        res[name] = dict(ms=time_ms(fn, None), bound_ms=bound, bound_by=by,
+                         bytes=float(nbytes), flops=flops)
+    cfg = dataclasses.replace(
+        get_config("granite-4.0-h-small"), d_model=di // 2,
+        ssm=dataclasses.replace(get_config("granite-4.0-h-small").ssm,
+                                d_state=n, head_dim=hd, chunk=chunk,
+                                conv_bias=shape[5]))
+    gen = torch.Generator(device="cuda").manual_seed(2101)
+    d = cfg.d_model
+    p["w_in"] = _randn((d, 2 * di + 2 * n + nh), torch.bfloat16, gen)
+    p["w_out"] = _randn((di, d), torch.bfloat16, gen)
+    xin = _randn((1, t, d), torch.bfloat16, gen)
+    ycont = torch.zeros((1, t, di), dtype=torch.bfloat16, device="cuda")
+
+    def fused():
+        return ops.mamba_prefill(zxbcdt, p, hd=hd, n=n, chunk=chunk,
+                                 eps=1e-5)
+
+    def layer():
+        return L.mamba_block(cfg, p, xin, mode="prefill")
+
+    def projections():
+        return xin @ p["w_in"], ycont @ p["w_out"]
+
+    with torch.no_grad():
+        proj = time_ms(projections, None)
+        chains = dict(fused_ms=time_ms(fused, None),
+                      fused_call_ms=time_ms(fused, None, queued=False),
+                      layer_ms=time_ms(layer, None) - proj)
+        with plain_mixer():
+            chains.update(plain_ms=time_ms(layer, None) - proj,
+                          plain_call_ms=time_ms(layer, None, queued=False)
+                          - proj)
+    return dict(parts=res, **chains)
+
+
+def mamba_prefill_lines(shape, r: dict, smi: str) -> list[str]:
+    lines = [f"time mamba prefill {shape} {name}: {q['ms']:.4f} ms "
+             f"({100 * q['bound_ms'] / q['ms']:.1f}% of its bound "
+             f"{q['bound_ms']:.5f} ms, {q['bound_by']}: "
+             f"{q['bytes'] / 1e6:.2f} MB, {q['flops'] / 1e9:.3f} GFLOP) "
+             f"[{smi}]" for name, q in r["parts"].items()]
+    lines.append(
+        f"time mamba prefill {shape} chain: the six launches "
+        f"{r['fused_ms']:.4f} ms ({r['fused_call_ms']:.4f} with the host's "
+        f"enqueue; "
+        f"{r['layer_ms']:.4f} in mamba_block less its projections), the "
+        f"eager chain they replaced {r['plain_ms']:.4f} ms "
+        f"({r['plain_call_ms']:.4f} with the host's enqueue) [{smi}]")
+    return lines
+
+
 def calibrate_and_plan(smi: str) -> dict:
     """The paper's analyzer loop on the card, feeding the planner: the
     kernel sweep (``Profiler.profile_kernels`` on ``cuda:0``, keyed to the
@@ -2200,7 +2403,7 @@ def serve_cross_families(smi: str) -> dict:
         per_prompt, per_step = cross_launches(cfg)
         want = {"flash_attention": N_REQUESTS * per_prompt,
                 "decode_attention": steps * per_step, "ssd_intra_chunk": 0,
-                "ssd_decode": 0}
+                "ssd_decode": 0, "mamba_prefill": 0}
         if run["launches"] != want:
             raise AssertionError(f"{aid} launches {run['launches']}, "
                                  f"expected {want}")
@@ -2243,7 +2446,7 @@ def serve_qwen3(smi: str) -> None:
     steps = len(run["eng"].decode_seconds)
     want = {"flash_attention": N_REQUESTS * cfg.n_layers,
             "decode_attention": steps * cfg.n_layers, "ssd_intra_chunk": 0,
-            "ssd_decode": 0}
+            "ssd_decode": 0, "mamba_prefill": 0}
     if run["launches"] != want:
         raise AssertionError(f"{QWEN3} launches {run['launches']}, expected "
                              f"{want}")
@@ -4091,10 +4294,12 @@ def _tp_serve(model, params, mesh, mesh_shape, b: int, seed: int,
     on ``mesh`` under ``plans`` (prefill plan, decode plan; ``dp_tp`` for
     both by default), fed the unsharded run's greedy tokens (seeded ones
     for the sequences the prompt did not have), every kernel counter set
-    to 0 just before and read just after (the main path).  ``logits_of``: a
-    sharded step's logits whole.  Returns the errors, whether each step's
-    logits equal the unsharded ones to the bit, the sharded decode steps'
-    ms, launches and peak."""
+    to 0 just before and read just after (the main path).  The unsharded
+    prefill runs the Mamba mixer on its eager path, as a sharded one does
+    (a split keeps the eager code), so that world 1 compares like with
+    like.  ``logits_of``: a sharded step's logits whole.  Returns the
+    errors, whether each step's logits equal the unsharded ones to the bit,
+    the sharded decode steps' ms, launches and peak."""
     from repro_torch.sharding import specs, spmd
     cfg = model.cfg
     plan_p, plan_d = plans or (tp_plan(mesh_shape),) * 2
@@ -4110,7 +4315,9 @@ def _tp_serve(model, params, mesh, mesh_shape, b: int, seed: int,
         np.int32)).cuda()
     start = cache_s - steps
     with torch.no_grad():
-        lu, cu = model.apply_prefill(params, batch, moe_impl=plan_p.moe_impl)
+        with plain_mixer():
+            lu, cu = model.apply_prefill(params, batch,
+                                         moe_impl=plan_p.moe_impl)
         cache = _tp_cache(model, cu, b, seed, cache_s)
         want = [lu]
         toks = [torch.cat([lu[:, 0].argmax(-1, keepdim=True).to(torch.int32),
@@ -4755,6 +4962,9 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     worst["ssd_decode"] = check_ssd_decode()
     log(f"ssd decode vs plain: {2 * len(SSD_DECODE)} cases, state largest "
         f"max|err| {worst['ssd_decode']:.3e}")
+    worst["mamba_prefill"] = check_mamba_prefill()
+    log(f"mamba prefill passes vs plain: {2 * len(MAMBA_PREFILL)} cases, "
+        f"output largest max|err| {worst['mamba_prefill']:.3e}")
     bwd_launch_times(smi)
     decode_launch_times(smi)
     moe_err = check_moe()
@@ -4782,7 +4992,8 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
     torch.cuda.empty_cache()
 
     cfg, model, params, prompts, run = serve(
-        "mamba2-780m", N_REQUESTS, ("ssd_intra_chunk", "ssd_decode"), smi)
+        "mamba2-780m", N_REQUESTS,
+        ("ssd_intra_chunk", "ssd_decode", "mamba_prefill"), smi)
     err = check_prefill_then_decode(model, params, cfg, PTD_LIMIT[cfg.name])
     log(f"mamba2-780m prefill-then-decode vs full forward (B=2, P=255: a "
         f"full chunk and a padded one): max|err| {err:.3e} within "
@@ -4791,7 +5002,7 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
         f"{decode_breakdown(model, params, prompts)} [{smi}]")
     log(f"mamba2-780m prefill: "
         f"{prefill_breakdown(model, params, prompts[0])} [{smi}]")
-    for kname in ("ssd_intra_chunk", "ssd_decode"):
+    for kname in ("ssd_intra_chunk", "ssd_decode", "mamba_prefill"):
         launches[kname] = run["launches"][kname]
     del params, model, run
     torch.cuda.empty_cache()
@@ -4885,6 +5096,16 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
         r = time_ssd_decode(shape)
         log(ssd_decode_line(shape, r, smi))
         records.setdefault("ssd_decode", r)
+    for shape in MAMBA_PREFILL:
+        r = time_mamba_prefill(shape)
+        for line in mamba_prefill_lines(shape, r, smi):
+            log(line)
+        passes = [q for k, q in r["parts"].items() if k != "ssd_intra_chunk"]
+        records.setdefault("mamba_prefill", dict(
+            ms=sum(q["ms"] for q in passes),
+            plain_ms=r["plain_ms"] - r["parts"]["ssd_intra_chunk"]["ms"],
+            bound_ms=sum(q["bound_ms"] for q in passes),
+            bound_by="bytes and operations", library_ms=None))
     r = time_flash_bwd(None)          # its inputs just produced: warm
     log(_time_line(f"flash backward gemma-2b training B={TRAIN_B} "
                    f"T={TRAIN_T} (library: sdpa's backward)", r, smi))
@@ -4923,7 +5144,11 @@ def _main(smi: str, name: str, dryruns: dict) -> int:
             "src/repro/kernels/ssd_scan.py:69"),
         "ssd_decode": ("src/repro_torch/kernels/csrc/ssd_decode.cu",
                        "none: src/repro/kernels/ops.py::ssd_decode_step "
-                       "runs outside Pallas")}
+                       "runs outside Pallas"),
+        "mamba_prefill": ("src/repro_torch/kernels/csrc/mamba_prefill.cu",
+                          "none: the Mamba-2 mixer's glue around the SSD "
+                          "kernel runs in XLA (src/repro/models/layers.py, "
+                          "src/repro/kernels/ssd_scan.py)")}
     # launches: the attention kernels' from the gemma-2b run, the SSD
     # kernels' (intra-chunk and decode) from the mamba2-780m run (hymba-1.5b's are logged above),
     # the flash backward's from gemma-2b's full-depth train steps, the SSD

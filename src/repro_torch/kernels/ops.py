@@ -4,11 +4,12 @@ The tensor's device picks the path:
 
   * a CUDA tensor goes through the hand-written CUDA kernel
     (``flash_attention`` / ``decode_attention`` / the intra-chunk pass of
-    ``ssd`` / ``ssd_decode_step_``), or the call raises.  Under grad, flash
-    attention runs as ``FlashAttentionFn`` (its forward kernel with the LSE
-    output, and its backward kernel when the graph is differentiated) and
-    the SSD intra-chunk pass as ``SSDIntraChunkFn`` (its forward and backward
-    kernels; the rest of the scan is PyTorch under autograd);
+    ``ssd`` / ``ssd_decode_step_`` / ``mamba_prefill``'s passes), or the
+    call raises.  Under grad, flash attention runs as ``FlashAttentionFn``
+    (its forward kernel with the LSE output, and its backward kernel when
+    the graph is differentiated) and the SSD intra-chunk pass as
+    ``SSDIntraChunkFn`` (its forward and backward kernels; the rest of the
+    scan is PyTorch under autograd);
   * a CPU tensor goes through the plain version in ``ref``:
     ``set_backend("blocked")`` (the default, as in the JAX package) or
     ``"naive"`` chooses which; torch's autograd differentiates it, as JAX's
@@ -30,8 +31,11 @@ from __future__ import annotations
 
 from typing import Literal
 
+import torch
+
 from . import decode_attention as da
 from . import flash_attention as fa
+from . import mamba_prefill as mp
 from . import ref, ssd_decode, ssd_scan
 
 Backend = Literal["blocked", "naive"]
@@ -161,3 +165,29 @@ def ssd_decode_step_(h, x, dt, A, B, C, D):
     y, h_new = ref.ssd_decode_step(h, x, dt, A, B, C, D)
     h.copy_(h_new)
     return y
+
+
+def mamba_prefill_impl(x, *params, split: bool = False) -> str:
+    """Which path a Mamba-2 mixer's prefill takes for its input ``x`` and
+    weights ``params``: "kernels" (``mamba_prefill``) for a CUDA input with
+    no gradient to keep (grad off, or no tensor that requires it) and no
+    tensor-parallel or sequence split (``split``); "plain" (the eager code
+    of ``layers.mamba_block``) for a CPU or abstract input, under grad, or
+    under a split."""
+    if split or _abstract(x) or not _on_cuda(x):
+        return "plain"
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *params)):
+        return "plain"
+    return "kernels"
+
+
+def mamba_prefill(zxbcdt, p, *, hd, n, chunk, eps, conv_state=None,
+                  h0=None):
+    """The Mamba-2 mixer's prefill from its input projection to the gated
+    norm's output (``mamba_prefill.mixer``): (y (b, t, di), final state,
+    new conv context).  A CUDA projection goes through the five CUDA passes
+    and the intra-chunk kernel, a CPU one through their plain versions."""
+    passes = mp.KERNELS if _on_cuda(zxbcdt) else mp.PLAIN
+    return mp.mixer(zxbcdt, p, hd=hd, n=n, chunk=chunk, eps=eps,
+                    conv_state=conv_state, h0=h0, passes=passes)

@@ -718,3 +718,116 @@ def ssd_decode_step(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", h_new, C.float())
     y = y + x.float() * D[None, :, None]
     return y.to(x.dtype), h_new
+
+
+# --------------------------------------------------------------------------
+# The Mamba-2 mixer's prefill passes (csrc/mamba_prefill.cu), each the eager
+# code of its stage in ``layers.mamba_block`` and ``ssd_scan.ssd``.  zxbcdt
+# (b, t, 2 di + 2 n + nh) is the input projection (z | x | B | C | dt) in
+# the activations' dtype; the time axis is padded to nc chunks of
+# c = min(chunk, t) rows (``_pad_chunks``), tp = nc c.
+# --------------------------------------------------------------------------
+
+def causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                conv_state: torch.Tensor | None,
+                bias: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv, width cw, and its bias (C,) where given, then
+    SiLU.  xbc: (B,T,C); w: (cw,C).  conv_state: (B,cw-1,C) carried
+    context (decode) or None (prefill).  Returns (out (B,T,C), new_state
+    (B,cw-1,C))."""
+    cw, t = w.shape[0], xbc.shape[1]
+    if conv_state is None:
+        conv_state = xbc.new_zeros((xbc.shape[0], cw - 1, xbc.shape[2]))
+    full = torch.cat([conv_state, xbc], 1)                 # (B,T+cw-1,C)
+    out = sum(full[:, i:i + t] * w[i][None, None] for i in range(cw))
+    if bias is not None:
+        out = out + bias
+    return torch.nn.functional.silu(out), full[:, -(cw - 1):]
+
+
+def ssd_dt(dtr: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+           chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """dtr (b, t, nh) the projection's dt columns.  Returns dt =
+    softplus(dtr + dt_bias) (b, tp, nh), 0 on the pad rows, and its
+    within-chunk cumsum of dt·A, A = -exp(A_log): dacs (b, nc, c, nh), both
+    fp32."""
+    b, t, nh = dtr.shape
+    c = min(chunk, t)
+    nc = -(-t // c)
+    dt = torch.nn.functional.softplus(dtr.float() + dt_bias.float())
+    dt = torch.nn.functional.pad(dt, (0, 0, 0, nc * c - t))
+    A = -torch.exp(A_log.float())
+    return dt, torch.cumsum(dt.reshape(b, nc, c, nh) * A[None, None, None, :],
+                            2)
+
+
+def mamba_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+               conv_state: torch.Tensor | None, dt: torch.Tensor, *, hd: int
+               ) -> tuple[torch.Tensor, ...]:
+    """xbc (b, t, di + 2n) the projection's x|B|C columns; w (cw, di + 2n)
+    and bias (di + 2n,) in any dtype (cast to xbc's); conv_state (b, cw-1,
+    di + 2n) or None; dt (b, tp, nh) from ``ssd_dt``.  Returns the conv's
+    output (b, t, di + 2n) and new context (b, cw-1, di + 2n) in xbc's
+    dtype (``causal_conv``), and the intra-chunk operands in fp32, zero on
+    the pad rows: xdt = x·dt (b, tp, di), B and C (b, tp, n)."""
+    b, t, cc = xbc.shape
+    tp, nh = dt.shape[1:]
+    di = nh * hd
+    n = (cc - di) // 2
+    out, new_state = causal_conv(
+        xbc, w.to(xbc.dtype), conv_state,
+        None if bias is None else bias.to(xbc.dtype))
+    xs, B, C = torch.split(out, [di, n, n], -1)
+    pad = tp - t
+    xp = torch.nn.functional.pad(xs.reshape(b, t, nh, hd),
+                                 (0, 0, 0, 0, 0, pad))
+    xdt = (xp.float() * dt[..., None]).reshape(b, tp, di)
+    B, C = (torch.nn.functional.pad(v, (0, 0, 0, pad)).float() for v in (B, C))
+    return out, new_state, xdt, B, C
+
+
+def ssd_chunk_states(states: torch.Tensor, dacs: torch.Tensor,
+                     h0: torch.Tensor | None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence across chunks: states (b, nc, nh, n, hd) the chunks'
+    outgoing states (``ssd_intra_chunk``), dacs (b, nc, c, nh), h0 (b, nh,
+    hd, n) or None (zeros).  Returns the state entering each chunk, h_in
+    (b, nc, nh, n, hd), and the final state (b, nh, hd, n), fp32."""
+    b, nc, nh, n, hd = states.shape
+    states = states.transpose(3, 4)                      # (b,nc,nh,hd,n)
+    h = (torch.zeros((b, nh, hd, n), device=states.device) if h0 is None
+         else h0.float())
+    chunk_decay = torch.exp(dacs[:, :, -1, :])           # (b,nc,nh)
+    h_in = []
+    for z in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, z, :, None, None] + states[:, z]
+    return torch.stack(h_in, 1).transpose(3, 4), h
+
+
+def ssd_output(y_diag: torch.Tensor, h_in: torch.Tensor, dacs: torch.Tensor,
+               C: torch.Tensor, x: torch.Tensor, D: torch.Tensor
+               ) -> torch.Tensor:
+    """y = y_diag + exp(dacs)·(C·h_in) + D·x: y_diag (b, nc, c, nh·hd),
+    h_in (b, nc, nh, n, hd), dacs (b, nc, c, nh), C (b, nc, c, n) fp32; x
+    (b, t, nh, hd) and D (nh,).  Returns y (b, t, nh, hd) in x's dtype."""
+    b, t, nh, hd = x.shape
+    nc, c = dacs.shape[1:3]
+    in_decay = torch.exp(dacs)                           # (b,nc,c,nh)
+    y_off = torch.einsum("bzcn,bzch,bzhpn->bzchp", C, in_decay,
+                         h_in.transpose(3, 4))
+    y = y_diag.reshape(b, nc, c, nh, hd) + y_off
+    y = y.reshape(b, nc * c, nh, hd)[:, :t]
+    y = y + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype)
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """The mixer's gated RMSNorm over the last axis: g = y·silu(z) rounded
+    to y's dtype, then ``layers.rmsnorm(g, w, eps)``.  y, z (b, t, di)."""
+    g = y * torch.nn.functional.silu(z.float()).to(y.dtype)
+    gf = g.float()
+    var = (gf * gf).mean(-1, keepdim=True)
+    return ((gf * torch.rsqrt(var + eps)) * (1.0 + w)).to(g.dtype)

@@ -49,7 +49,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.sharding import comm
 from repro_torch.sharding import ctx as shard_ctx
 from .config import ArchConfig, MoESpec
@@ -433,22 +433,12 @@ def moe_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
 # Mamba-2 (SSD) block
 # --------------------------------------------------------------------------
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
-                 conv_state: torch.Tensor | None,
-                 bias: torch.Tensor | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv, width cw, and its bias (C,) where given, then
-    SiLU.  xbc: (B,T,C); w: (cw,C).  conv_state: (B,cw-1,C) carried
-    context (decode) or None (prefill).  Returns (out (B,T,C), new_state
-    (B,cw-1,C))."""
-    cw, t = w.shape[0], xbc.shape[1]
-    if conv_state is None:
-        conv_state = xbc.new_zeros((xbc.shape[0], cw - 1, xbc.shape[2]))
-    full = torch.cat([conv_state, xbc], 1)                 # (B,T+cw-1,C)
-    out = sum(full[:, i:i + t] * w[i][None, None] for i in range(cw))
-    if bias is not None:
-        out = out + bias
-    return F.silu(out), full[:, -(cw - 1):]
+def mamba_prefill_impl(p: dict, x: torch.Tensor) -> str:
+    """The path of a Mamba-2 mixer's prefill on input ``x`` with weights
+    ``p``: ``ops.mamba_prefill_impl``, told whether a tensor-parallel or
+    sequence split is published."""
+    split = shard_ctx.tp() is not None or shard_ctx.seq_group() is not None
+    return ops.mamba_prefill_impl(x, *p.values(), split=split)
 
 
 def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
@@ -460,7 +450,11 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     mode="decode" (T == 1) steps the recurrence from ``cache`` and writes the
     new state into it in place (the engine owns the cache; the JAX engine
     rebuilds it functionally instead); other modes run the chunked scan from
-    a zero state and return the state they end in.
+    a zero state and return the state they end in.  Where
+    ``mamba_prefill_impl`` says "kernels" (a CUDA input, no gradient, no
+    split), everything between the two projections runs in
+    ``ops.mamba_prefill``'s CUDA passes; the eager code below is the plain
+    version.
 
     Under tensor parallelism: ``w_in``'s column shard gathered whole (its
     columns cut through the z/x/B/C/dt segments), the depthwise conv on the
@@ -484,6 +478,14 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
     seq = shard_ctx.seq_group() if mode != "decode" else None
     xc = x.to(COMPUTE_DTYPE)
     zxbcdt = xc @ p["w_in"].to(COMPUTE_DTYPE)
+    if mode != "decode" and mamba_prefill_impl(p, x) == "kernels":
+        y, h_new, new_conv = ops.mamba_prefill(
+            zxbcdt, p, hd=spec.head_dim, n=n, chunk=spec.chunk,
+            eps=spec.norm_eps,
+            conv_state=None if cache is None else cache["conv"],
+            h0=None if cache is None else cache["h"])
+        out = _row_split_out(y, p["w_out"], di)
+        return out.to(x.dtype), {"h": h_new, "conv": new_conv}
     if tp is not None:
         (zxbcdt,) = _cols_to([zxbcdt], [_wsplit(p["w_in"],
                                                 2 * di + 2 * n + nh)],
@@ -504,8 +506,9 @@ def mamba_block(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
         if tp is not None:
             raise NotImplementedError("a conv bias under tensor parallelism")
         bias = p["conv_b"].to(COMPUTE_DTYPE)
-    conv_out, new_conv = _causal_conv(conv_in, p["conv"].to(COMPUTE_DTYPE),
-                                      conv_state, bias)
+    conv_out, new_conv = ref.causal_conv(conv_in,
+                                         p["conv"].to(COMPUTE_DTYPE),
+                                         conv_state, bias)
     if seq is not None:
         new_conv = last
     (conv_out,) = _cols_to([conv_out], [conv_g], NO_SPLIT)

@@ -35,10 +35,10 @@ spans its parts on it, each wall-clocked on the host: ``model.embed``, then
 per layer ``layer.norm`` (ln1, and ln2 where the layer has one),
 ``layer.attention``, ``layer.ssm``, ``layer.moe`` and ``layer.shared_mlp``
 (hybrid_moe) or ``layer.mlp`` with the attr ``layer`` (the layer's index;
-``layer.moe`` also ``impl``, its lowering, and a decode ``layer.ssm`` the
-path of its state update, ``ops.ssd_decode_impl``), then ``model.head``.  They
-time the host's enqueue; the device's time under each is the profiler's,
-joined by launch time.
+``layer.moe`` also ``impl``, its lowering, and ``layer.ssm`` its path:
+``ops.ssd_decode_impl`` in decode, ``layers.mamba_prefill_impl`` otherwise),
+then ``model.head``.  They time the host's enqueue; the device's time under
+each is the profiler's, joined by launch time.
 Training and the sharded steps pass none.
 """
 
@@ -385,8 +385,9 @@ def apply_layer(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
                 causal=True, window=window, cache=views("k", "v"),
                 lengths=lengths)
     if "ssm" in p:
-        kw = {"impl": ops.ssd_decode_impl(h)} if mode == "decode" else {}
-        with span("layer.ssm", **kw):
+        impl = (ops.ssd_decode_impl(h) if mode == "decode"
+                else L.mamba_prefill_impl(p["ssm"], h))
+        with span("layer.ssm", impl=impl):
             s, sc = L.mamba_block(cfg, p["ssm"], h, mode=mode,
                                   cache=views("h", "conv"))
         if cfg.family == "ssm":

@@ -299,9 +299,9 @@ def test_the_layer_spans_name_each_kind():
                          "layer.moe", "layer.shared_mlp"]
         assert {e.attrs["impl"] for e in mine
                 if e.name == "layer.moe"} == {"routed"}
-        # a decode step's state update names its path: the plain one on CPU
+        # a Mamba layer names its path, prefill and decode: plain on CPU
         assert {e.attrs.get("impl") for e in mine if e.name == "layer.ssm"
-                } == ({"plain"} if call.name == "engine.decode" else {None})
+                } == {"plain"}
         names = Counter(e.name for e in mine)
         assert names["model.embed"] == names["model.head"] == 1
 

@@ -321,7 +321,7 @@ def test_every_kernel_library_exports_its_wrappers_entry_points():
     import ctypes
     import re
 
-    from repro_torch.kernels import _build, ssd_decode, ssd_scan
+    from repro_torch.kernels import _build, mamba_prefill, ssd_decode, ssd_scan
     ctype = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
              ctypes.c_longlong: "long long", ctypes.c_float: "float"}
     loaded = {"flash_attention": fa._SIGNATURES,
@@ -329,7 +329,8 @@ def test_every_kernel_library_exports_its_wrappers_entry_points():
               "decode_attention": da._SIGNATURES,
               "ssd_intra_chunk": ssd_scan._SIGNATURES,
               "ssd_intra_chunk_bwd": ssd_scan._BWD_SIGNATURES,
-              "ssd_decode": ssd_decode._SIGNATURES}
+              "ssd_decode": ssd_decode._SIGNATURES,
+              "mamba_prefill": mamba_prefill._SIGNATURES}
     assert set(loaded) == set(_build.KERNELS)
     for lib, sigs in loaded.items():
         src = (_build.CSRC / f"{lib}.cu").read_text()
